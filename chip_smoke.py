@@ -6,8 +6,9 @@
 On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
 /usr/local/cuda) it:
 
-1. build   — compiles the ``ibn_pointwise`` kernel from the repository's
-             sources and prints ptxas's report;
+1. build   — compiles the ``ibn_pointwise`` and ``flash_attention`` kernels
+             from the repository's sources (one ``nvcc`` each, started
+             together) and prints ptxas's report;
 2. kernel  — at every distinct 1×1 shape of full-width MobileNetV2,
              EfficientNet-B0 (SE, swish) and the manual EdgeTPU model at
              224 px, batch 8, and of the search's MobileNetV2 space at the
@@ -23,10 +24,28 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
              just before and read just after;
 5. profile — one training step of a search candidate under torch.profiler:
              wall time, device time, and the kernel's share of it;
-6. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+6. attention — holds ``flash_attention`` against its plain version on the
+             card at tests/test_kernels.py's shapes (fp32 and bf16), causal
+             with sq != skv, and the served model's prefill shape (B 8, H 16,
+             KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025); times the
+             kernel, the plain version and ``scaled_dot_product_attention``;
+7. serve   — the second main path: qwen3-1.7B at full width with
+             ``attn_impl="flash_pallas"``, random weights from a seed on the
+             card, 8 prompts of 1024 tokens through ``make_prefill_step``
+             (exactly 28 kernel launches) and the ``return_cache`` forward,
+             the k/v written into a preallocated 2048-position bf16 cache,
+             32 greedy steps of ``make_decode_step``, the first step held
+             against a forward over the prompt plus its token, 4 steps over
+             int8 caches; ms per prefill and per decode step, tokens/s, and
+             where the device time goes (torch.profiler);
+8. llm     — the same model cut to 4 layers, batch 1, 64 tokens: the card's
+             logits (kernel) against the port's CPU forward (plain version);
+9. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Any failure raises and exits non-zero; nothing falls back to the CPU.
-TF32 is off for matmuls and cuDNN convolutions (the model is fp32).
+Each main path (search for ibn_pointwise, serve for flash_attention) runs
+with every kernel's launch count set to 0 just before it and read just
+after. Any failure raises and exits non-zero; nothing falls back to the CPU.
+TF32 is off for matmuls and cuDNN convolutions.
 ``--json PATH`` also writes every per-shape measurement to PATH.
 """
 from __future__ import annotations
@@ -45,14 +64,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.common import tree_map  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core import nas, scenarios  # noqa: E402
 from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
-from repro_torch.kernels import ibn_conv  # noqa: E402
-from repro_torch.kernels.ref import ibn_pointwise_ref  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention, ibn_conv  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, ibn_pointwise_ref  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
+from repro_torch.serving import kvcache  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: HBM3 rate, and the peak rate of each input
 # type (fp32 outside the tensor cores, bf16 dense on them)
@@ -64,6 +88,24 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGIT_TOL = 1e-3  # card vs CPU logits, absolute (cuDNN vs CPU conv sum order)
 MAIN_PATH_SCENARIO = "lat-0.5ms"
+# flash_attention against its plain version, absolute, inputs N(0, 1):
+# tests/test_kernels.py's tolerances (fp32 sums in another order; bf16 rounds
+# p and the output to 8 bits of mantissa)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DEV = "cuda"  # every tensor of the attention, serve and llm phases
+# the served model's prefill attention: B, H, KV, S, hd (qwen3-1.7B, 8 x 1024)
+SERVE_ATTN = (8, 16, 8, 1024, 128)
+SERVE_ARCH = "qwen3_1_7b"
+SERVE_BATCH, PROMPT, CACHE_LEN, DECODE_STEPS, INT8_STEPS = 8, 1024, 2048, 32, 4
+# LLM logits relative to max |logit|. fp32: the card and the CPU sum in
+# another order. bf16: every product and norm rounds to 8 bits of mantissa at
+# other places (the card's against the CPU's products, decode's chunked
+# attention against the prefill's kernel, one-row against many-row products),
+# through up to 28 layers; a wrong mask or position moves logits by O(1).
+LLM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# int8 cache against the bf16 cache: every cached k/v moves by up to 1/254 of
+# its row's largest value, in all 28 layers
+INT8_TOL = 0.1
 
 
 def card_line() -> str:
@@ -275,6 +317,7 @@ def search_phase(card: str) -> dict:
     rcfg = scenarios.get(MAIN_PATH_SCENARIO).reward_config()
     torch.cuda.synchronize()
     ibn_conv.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
     t0 = time.perf_counter()
     res = session.joint(rcfg=rcfg)
     torch.cuda.synchronize()
@@ -348,6 +391,272 @@ def profile_phase(card: str) -> dict:
             "per_kernel_ms": per_kernel}
 
 
+def attention_bound_parts_ms(b, h, kv, sq, skv, hd, causal, dtype) -> tuple[float, float]:
+    """The two lower bounds of one attention call in ms: bytes (q, k, v read
+    once, o written once) over the memory rate, and 4·hd operations per
+    unmasked (q, k) pair over the peak rate for the input type."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = itemsize * (2 * b * h * sq * hd + 2 * b * kv * skv * hd)
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            4.0 * hd * pairs * b * h / PEAK_FLOP_PER_S[dtype] * 1e3)
+
+
+def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool) -> dict:
+    """flash_attention against its plain version on the card."""
+    q = torch.randn((b, h, sq, hd), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((b, kv, skv, hd), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, kv, skv, hd), generator=gen, device=DEV).to(dtype)
+    out = flash_attention.launch(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    rec = {"shape": (b, h, kv, sq, skv, hd), "causal": causal, "dtype": str(dtype)[6:],
+           "max_abs_err": err, "tol": ATTN_TOL[dtype]}
+    if not err <= ATTN_TOL[dtype]:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
+    if timed:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        rec["library_err"] = (lib.float() - want.float()).abs().max().item()
+        rec["ms"] = time_ms(lambda: flash_attention.launch(q, k, v, causal=causal))
+        rec["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal))
+        rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        rec["bound_bytes_ms"], rec["bound_ops_ms"] = attention_bound_parts_ms(
+            b, h, kv, sq, skv, hd, causal, dtype)
+        rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
+        rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
+                           else "operations")
+    return rec
+
+
+def attention_phase(card: str) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    records = []
+    # tests/test_kernels.py's shapes, then causal with sq != skv
+    for shape in ((1, 4, 4, 64, 64, 32, True), (2, 4, 2, 64, 64, 32, True),
+                  (1, 8, 1, 128, 128, 64, True), (2, 4, 1, 96, 160, 32, False),
+                  (1, 2, 2, 200, 200, 16, True), (1, 4, 2, 96, 160, 32, True),
+                  (2, 4, 1, 160, 96, 16, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            records.append(check_attention(*shape, dtype, gen, timed=False))
+    b, h, kv, s, hd = SERVE_ATTN
+    ragged = check_attention(b, h, kv, s + 1, s + 1, hd, True, torch.bfloat16, gen, timed=False)
+    main = check_attention(b, h, kv, s, s, hd, True, torch.bfloat16, gen, timed=True)
+    records += [ragged, main]
+    worst = max(r["max_abs_err"] / r["tol"] for r in records)
+    print(f"attention: {len(records)} checks against the plain version (fp32 and bf16, "
+          f"causal sq != skv, S {s} and {s + 1}); worst error {worst:.3g} of its "
+          f"tolerance  [{card}]")
+    print(f"attention: B {b} H {h} KV {kv} S {s} hd {hd} bf16 causal: kernel "
+          f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, sdpa "
+          f"{main['library_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']}; "
+          f"bytes {main['bound_bytes_ms']:.4f}, operations {main['bound_ops_ms']:.4f}); "
+          f"max |err| {main['max_abs_err']:.3g} (ragged S {s + 1}: "
+          f"{ragged['max_abs_err']:.3g}), sdpa vs plain {main['library_err']:.3g}  [{card}]")
+    return {"records": records, "main": main}
+
+
+def _device_times(prof, steps_run: int) -> dict:
+    """Device ms per run by kernel name from a finished torch.profiler."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            out[e.key] = us / 1e3 / steps_run
+    return out
+
+
+def _print_breakdown(label: str, wall_ms: float, per_kernel: dict, card: str) -> float:
+    device_ms = sum(per_kernel.values())
+    attn_ms = sum(v for k, v in per_kernel.items() if "attn_fwd" in k)
+    if device_ms == 0.0:
+        print(f"serve: {label} device time not measured (the profiler saw no CUDA "
+              f"activity)  [{card}]")
+        return 0.0
+    print(f"serve: {label} {wall_ms:.2f} ms wall, {device_ms:.3f} ms on the device "
+          f"({device_ms / wall_ms:.1%} busy), flash_attention {attn_ms:.3f} ms "
+          f"({attn_ms / device_ms:.1%} of device time), {len(per_kernel)} kernel names  "
+          f"[{card}]")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"serve:   {ms:.4f} ms  {name[:90]}")
+    return attn_ms
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def serve_phase(card: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    run = configs.make_run(SERVE_ARCH, "decode_32k", model_attn_impl="flash_pallas")
+    cfg = run.model
+    prefill, _, _ = steps.make_prefill_step(run)
+    decode, _, _, _ = steps.make_decode_step(run)
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
+    prefill(params, {"tokens": prompt})  # warm-up: cuBLAS plans, the kernel's first launch
+    torch.cuda.synchronize()
+
+    # --- the main path: counts at 0 just before, read just after
+    ibn_conv.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = flash_attention.LAUNCHES
+    if prefill_launches != cfg.num_layers:
+        raise AssertionError(f"prefill launched flash_attention {prefill_launches} times, "
+                             f"not once per layer ({cfg.num_layers})")
+    if logits.shape != (SERVE_BATCH, PROMPT, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    first = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    with torch.no_grad():
+        _, pre = transformer.forward(params, {"tokens": prompt}, cfg, return_cache=True)
+    cache = kvcache.cache_update(api.init_cache(cfg, SERVE_BATCH, CACHE_LEN, "bfloat16", DEV),
+                                 pre["k"].transpose(-3, -2), pre["v"].transpose(-3, -2), 0)
+    tok, tokens, step_ms = first, [first], []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, lg, cache = decode(params, cache, tok, PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first_step = lg[:, 0].float()
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"decode step {i}: non-finite logits")
+        tokens.append(tok)
+    path = {"flash_attention": flash_attention.LAUNCHES, "ibn_pointwise": ibn_conv.LAUNCHES}
+    if path["flash_attention"] != 2 * cfg.num_layers:
+        raise AssertionError(f"the serve path launched flash_attention "
+                             f"{path['flash_attention']} times, not {2 * cfg.num_layers}")
+    tokens = torch.cat(tokens, dim=1)
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        raise AssertionError("decode produced token ids outside the vocabulary")
+
+    # --- decode against a forward over the prompt plus the first token (S 1025)
+    with torch.no_grad():
+        full = transformer.forward(params, {"tokens": torch.cat([prompt, first], dim=1)}, cfg)
+    want = full[:, PROMPT].float()
+    del full
+    decode_err = _rel(first_step, want)
+    agree = (first_step.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if not decode_err <= LLM_TOL["bfloat16"]:
+        raise AssertionError(f"first decode step vs forward: {decode_err} relative to max "
+                             f"|logit| (tolerance {LLM_TOL['bfloat16']})")
+
+    # --- a few steps over int8 caches (eager and lazy dequantization)
+    int8 = {}
+    for lazy in (False, True):
+        qrun = run.replace(model=cfg.scaled(lazy_kv_dequant=lazy))
+        qdecode, _, _, _ = steps.make_decode_step(qrun)
+        qcache = kvcache.cache_update(api.init_cache(cfg, SERVE_BATCH, CACHE_LEN, "int8", DEV),
+                                      pre["k"].transpose(-3, -2), pre["v"].transpose(-3, -2), 0)
+        qtoks = []
+        for i in range(INT8_STEPS):
+            qtok, qlg, qcache = qdecode(params, qcache, tokens[:, i:i + 1], PROMPT + i)
+            if i == 0:
+                qerr = _rel(qlg[:, 0], first_step)
+            if not torch.isfinite(qlg).all():
+                raise AssertionError(f"int8 decode step {i}: non-finite logits")
+            qtoks.append(qtok)
+        qagree = (torch.cat(qtoks, 1) == tokens[:, 1:INT8_STEPS + 1]).float().mean().item()
+        if not qerr <= INT8_TOL:
+            raise AssertionError(f"int8 (lazy={lazy}) first step vs bf16 cache: {qerr} "
+                                 f"(tolerance {INT8_TOL})")
+        int8["lazy" if lazy else "eager"] = {"first_step_rel_err": qerr, "token_agreement": qagree}
+        del qcache
+    del pre
+
+    # --- steady-state timing and where the device time goes
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms_steady = min(times)
+    decode_ms = float(np.median(step_ms[1:]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+    prefill_kernels = _device_times(prof, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, tokens[:, -1:], PROMPT + DECODE_STEPS)
+        torch.cuda.synchronize()
+    decode_kernels = _device_times(prof, 1)
+
+    print(f"serve: {SERVE_ARCH} full width ({n_params / 1e9:.3f} B params, fp32 weights, bf16 "
+          f"compute, attn_impl=flash_pallas), init on the card {init_s:.1f} s  [{card}]")
+    print(f"serve: prefill {SERVE_BATCH} x {PROMPT} tokens: {prefill_ms:.2f} ms on the main "
+          f"path, {prefill_ms_steady:.2f} ms steady ({SERVE_BATCH * PROMPT / prefill_ms_steady * 1e3:.0f} "
+          f"tokens/s), {prefill_launches} flash_attention launches  [{card}]")
+    print(f"serve: decode {DECODE_STEPS} greedy steps over a {CACHE_LEN}-position bf16 cache: "
+          f"{decode_ms:.2f} ms per step (median; first {step_ms[0]:.2f} ms), "
+          f"{SERVE_BATCH / decode_ms * 1e3:.1f} tokens/s; main path launches {path}  [{card}]")
+    print(f"serve: first decode step vs forward over prompt + token at position {PROMPT}: "
+          f"{decode_err:.3g} of max |logit| (tolerance {LLM_TOL['bfloat16']}), argmax agreement "
+          f"{agree:.3f}  [{card}]")
+    for name, r in int8.items():
+        print(f"serve: int8 cache ({name} dequantization), {INT8_STEPS} steps: first step "
+              f"{r['first_step_rel_err']:.3g} of max |logit| from the bf16 cache's (tolerance "
+              f"{INT8_TOL}), greedy tokens agree {r['token_agreement']:.3f}  [{card}]")
+    attn_ms = _print_breakdown(f"prefill ({SERVE_BATCH} x {PROMPT})", prefill_ms_steady,
+                               prefill_kernels, card)
+    _print_breakdown("decode step", decode_ms, decode_kernels, card)
+    return {"n_params": n_params, "init_s": init_s, "prefill_ms": prefill_ms,
+            "prefill_ms_steady": prefill_ms_steady, "prefill_times_ms": times,
+            "prefill_launches": prefill_launches, "path_launches": path,
+            "decode_step_ms": step_ms, "decode_ms": decode_ms,
+            "decode_vs_forward_rel_err": decode_err, "decode_vs_forward_argmax_agreement": agree,
+            "int8": int8, "prefill_attention_device_ms": attn_ms,
+            "prefill_device_ms": sum(prefill_kernels.values()),
+            "decode_device_ms": sum(decode_kernels.values()),
+            "prefill_kernels_ms": prefill_kernels, "decode_kernels_ms": decode_kernels}
+
+
+def llm_phase(card: str) -> dict:
+    """Full width cut to 4 layers, batch 1, 64 tokens: the card (kernel)
+    against the port's CPU forward (plain version) on the same params."""
+    out = {}
+    for compute in ("float32", "bfloat16"):
+        cfg = configs.get(SERVE_ARCH).scaled(num_layers=4, attn_impl="flash_pallas",
+                                             compute_dtype=compute)
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                                    size=(1, 64)))
+        params = transformer.init(1, cfg, device=DEV)
+        before = flash_attention.LAUNCHES
+        with torch.no_grad():
+            got = transformer.forward(params, {"tokens": tokens.to(DEV)}, cfg)
+            torch.cuda.synchronize()
+            launches = flash_attention.LAUNCHES - before
+            want = transformer.forward(tree_map(lambda t: t.cpu(), params), {"tokens": tokens}, cfg)
+        err = _rel(got.cpu(), want)
+        if not (torch.isfinite(got).all() and got.shape == (1, 64, cfg.vocab_size)):
+            raise AssertionError(f"llm: bad logits {tuple(got.shape)}")
+        if not err <= LLM_TOL[compute] or launches != cfg.num_layers:
+            raise AssertionError(f"llm {compute}: card vs CPU logits {err} of max |logit| "
+                                 f"(tolerance {LLM_TOL[compute]}), {launches} launches")
+        print(f"llm: {SERVE_ARCH} full width cut to 4 layers, 64 tokens, {compute} compute: card "
+              f"vs CPU logits {err:.3g} of max |logit| (tolerance {LLM_TOL[compute]}), "
+              f"{launches} flash_attention launches  [{card}]")
+        out[compute] = {"rel_err": err, "launches": launches}
+        del params
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -366,14 +675,28 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    lib = ibn_conv.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s  [{card}]")
-    print(ibn_conv.BUILD_LOG.strip())
+    libs = kbuild.build(ibn_conv.SOURCE, flash_attention.SOURCE)
+    print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]")
+    for log in kbuild.LOGS.values():
+        print(log.strip())
 
-    kern = kernel_phase(card)
-    model = model_phase(card)
-    search = search_phase(card)
-    prof = profile_phase(card)
+    phase_s = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        result = fn(card)
+        phase_s[name] = time.perf_counter() - t
+        return result
+
+    kern = timed("kernel", kernel_phase)
+    model = timed("model", model_phase)
+    search = timed("search", search_phase)
+    prof = timed("profile", profile_phase)
+    attn = timed("attention", attention_phase)
+    serve = timed("serve", serve_phase)
+    llm = timed("llm", llm_phase)
+    print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
     kernels = {"kernels": [{
@@ -390,12 +713,26 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "max_rel_err_fwd": kern["max_rel_err_fwd"],
         "max_rel_err_bwd": kern["max_rel_err_bwd"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88",
+        "launches": serve["path_launches"]["flash_attention"],
+        "max_abs_err": attn["main"]["max_abs_err"],
+        "ms": attn["main"]["ms"],
+        "plain_ms": attn["main"]["plain_ms"],
+        "bound_ms": attn["main"]["bound_ms"],
+        "bound_by": attn["main"]["bound_by"],
+        "library_ms": attn["main"]["library_ms"],
+        "launches_per_prefill": serve["prefill_launches"],
     }]}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernel": kern, "model": model, "search": search,
-             "profile": prof, "kernels": kernels}, indent=1, default=str))
+             "profile": prof, "attention": attn, "serve": serve, "llm": llm,
+             "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

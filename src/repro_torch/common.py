@@ -8,6 +8,7 @@ from __future__ import annotations
 import hashlib
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 PyTree = Any
@@ -27,15 +28,16 @@ def dtype_of(name: str | torch.dtype) -> torch.dtype:
     return name
 
 
-def fold_seed(seed: int, *names: str) -> torch.Generator:
-    """A CPU ``torch.Generator`` seeded from ``seed`` and string names
-    (stable across runs and processes). The counterpart of
+def fold_seed(seed: int, *names: str, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``seed`` and string
+    names (stable across runs and processes). The counterpart of
     ``repro.common.fold_rng``; it does not reproduce ``jax.random``'s
     streams, so the port's inits match the reference only in distribution."""
     h = hashlib.sha256(str(int(seed)).encode())
     for name in names:
         h.update(b"/" + name.encode())
-    return torch.Generator().manual_seed(int.from_bytes(h.digest()[:8], "little") >> 1)
+    return torch.Generator(device=device).manual_seed(
+        int.from_bytes(h.digest()[:8], "little") >> 1)
 
 
 def tree_leaves(tree: PyTree) -> list:
@@ -69,6 +71,21 @@ def tree_unflatten(tree: PyTree, leaves: list) -> PyTree:
         return next(it)
 
     return rebuild(tree)
+
+
+def tree_from_numpy(np_tree: PyTree, device="cuda") -> PyTree:
+    """A tree of numpy arrays (a reference parameter tree after
+    ``jax.tree.map(np.asarray, ...)``) as tensors on ``device``, with the
+    same nesting; bfloat16 arrays stay bfloat16."""
+    leaves = []
+    for a in tree_leaves(np_tree):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        leaves.append(t.to(device))
+    return tree_unflatten(np_tree, leaves)
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -7,10 +7,9 @@ b (Cout,), fp32 accumulation, bias and act in the epilogue, output in
 ``x.dtype``. The kernel source is ``csrc/ibn_pointwise.cu``; its header says
 what bounds it on the card and how it is laid out.
 
-Build: at first use, ``nvcc`` compiles the source into a shared library
-with a plain C interface under ``build/kernels/`` at the repository root
-(one file per source digest), loaded with ``ctypes``. Nothing is built when
-the module is imported.
+Build: at first use, ``kernels.build`` compiles the source into a shared
+library with a plain C interface under ``build/kernels/``, loaded with
+``ctypes``. Nothing is built when the module is imported.
 
 Gradient (``IbnPointwise``): ``dz = dy · act'(z)`` in plain torch (relu
 reads ``y > 0``; silu recomputes ``z`` with the kernel at ``act="none"``),
@@ -24,62 +23,31 @@ On a CPU tensor every product takes the plain version
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.common import ceil_div, round_up
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ibn_pointwise.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: kernel launches so far (products on the card; the plain version is not
 #: counted). Reset it to 0 to count one run.
 LAUNCHES = 0
-#: ptxas's report (registers, shared memory, spills) from this process's build
-BUILD_LOG = ""
 
 _ACTS = {"none": 0, "relu": 1, "silu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BM, _BN, _BK = 64, 64, 16  # the kernel's output tile and K step
 _lib: Optional[ctypes.CDLL] = None
-_devices: dict = {}  # device index -> (compute capability, SM count)
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("ibn_pointwise needs nvcc (the CUDA toolkit) to build "
-                           "its kernel; none found on PATH or in /usr/local/cuda")
-    return nvcc
 
 
 def build() -> Path:
     """Compile the kernel library if this source has not been built yet;
     returns its path."""
-    global BUILD_LOG
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libibn_pointwise-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    BUILD_LOG = proc.stderr
-    os.replace(tmp, out)
-    return out
+    return kbuild.build(SOURCE)[0]
 
 
 def _library() -> ctypes.CDLL:
@@ -107,29 +75,13 @@ def _split_k(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     return ceil_div(k, k_chunk), k_chunk
 
 
-def _device(index: int) -> tuple[tuple[int, int], int]:
-    """(compute capability, SM count) of a card, asked once per process:
-    the training step calls the wrapper hundreds of times."""
-    info = _devices.get(index)
-    if info is None:
-        props = torch.cuda.get_device_properties(index)
-        info = _devices[index] = ((props.major, props.minor), props.multi_processor_count)
-    return info
-
-
 def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            act: str) -> torch.Tensor:
     """One launch of the kernel: ``act(x @ w + b)`` into a new (N, Cout)
     tensor. x and w may be strided views; b (Cout,) or None. Raises on
     anything the kernel does not take."""
     global LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"the ibn_pointwise kernel runs on CUDA tensors, got {x.device}")
-    cap, sms = _device(x.device.index)
-    if cap < (9, 0):
-        raise RuntimeError(f"the ibn_pointwise kernel is built for sm_90a; "
-                           f"{torch.cuda.get_device_name(x.device)} has "
-                           f"compute capability {cap[0]}.{cap[1]}")
+    sms = kbuild.require_sm90(x, "ibn_pointwise")
     if act not in _ACTS:
         raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
     if x.dtype not in _DTYPES:

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ibn_conv
 
 
@@ -20,3 +21,16 @@ def ibn_pointwise(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ibn_pointwise runs on cpu or cuda, not {x.device}")
     return ibn_conv.ibn_pointwise(x, w, b, act=act)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention in the model's layout: q (B, S, H, hd), k/v (B, T, KV, hd)
+    -> (B, S, H, hd). The train/prefill shapes only: decode, with its
+    ``q_offset``/``kv_len`` against a preallocated cache, goes to
+    ``models.layers.chunked_attention``, as in the reference."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    out = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=causal)
+    return out.transpose(1, 2)

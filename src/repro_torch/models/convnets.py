@@ -22,11 +22,11 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import FifoDict, dtype_of, fold_seed, tree_leaves, tree_unflatten
+from repro_torch.common import FifoDict, dtype_of, fold_seed, tree_from_numpy
+from repro_torch.common import tree_leaves  # noqa: F401  (callers walk params with it)
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -295,15 +295,7 @@ def params_from_reference(np_params: dict, device="cuda") -> dict:
     """The reference's parameter tree, with numpy arrays for leaves
     (``jax.tree.map(np.asarray, params)``), as the port's parameters: the
     same nesting and HWIO layouts, as tensors on ``device``."""
-    leaves = []
-    for a in tree_leaves(np_params):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a.copy())
-        leaves.append(t.to(device))
-    return tree_unflatten(np_params, leaves)
+    return tree_from_numpy(np_params, device)
 
 
 def forward(params: dict, images: torch.Tensor, spec: ConvNetSpec) -> torch.Tensor:

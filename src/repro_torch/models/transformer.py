@@ -1,0 +1,189 @@
+"""Decoder / encoder transformer (dense, VLM-backbone, audio-encoder
+families). Counterpart of ``repro/models/transformer.py``.
+
+Layers are stacked along a leading L dim, as in the reference (which scans
+over them); the port loops over the stack in Python, each layer's
+parameters being views into it. Remat (activation checkpointing) comes
+with the training slice: ``remat`` other than ``"none"`` raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common import dtype_of, fold_seed, tree_from_numpy, tree_map
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.serving import kvcache
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init(seed: int, cfg: ModelConfig, device="cuda") -> dict:
+    """Fresh parameters from ``seed``, drawn on ``device`` from named
+    generators (one per parameter group, every layer's weights as one
+    L-leading stack). The reference's shapes, layouts and init
+    distributions; not its numbers, since ``jax.random`` is not reproduced."""
+    dtype = dtype_of(cfg.param_dtype)
+
+    def gen(*names):
+        return fold_seed(seed, *names, device=device)
+
+    lead = (cfg.num_layers,)
+    layers = {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
+        "attn": L.init_attention(gen("layers", "attn"), cfg, lead=lead, device=device),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
+        "mlp": L.init_mlp(gen("layers", "mlp"), cfg, lead=lead, device=device),
+    }
+    params = {
+        "embed": L.init_embedding(gen("embed"), cfg, device=device),
+        "layers": layers,
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device=device),
+    }
+    if cfg.frontend == "vision_patches":
+        params["connector"] = L.dense_init(
+            gen("connector"), (cfg.frontend_dim, cfg.d_model), dtype, device=device)
+    if cfg.frontend == "audio_frames":
+        params["in_proj"] = L.dense_init(
+            gen("in_proj"), (cfg.frontend_dim, cfg.d_model), dtype, device=device)
+    return params
+
+
+def params_from_reference(np_params: dict, device="cuda") -> dict:
+    """The reference's parameter tree, with numpy arrays for leaves
+    (``jax.tree.map(np.asarray, params)``), as the port's parameters: the
+    same nesting, the L-leading layer stack and the same layouts."""
+    return tree_from_numpy(np_params, device)
+
+
+def _layer(stack: dict, i: int) -> dict:
+    return tree_map(lambda t: t[i], stack)
+
+
+# ---------------------------------------------------------------------------
+# One transformer block
+# ---------------------------------------------------------------------------
+
+
+def block_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[dict] = None,
+    cache_index: Optional[int] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    h, new_cache = L.attention_block(
+        params["attn"],
+        L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
+        cfg,
+        positions=positions,
+        cache=cache,
+        cache_index=cache_index,
+    )
+    x = x + h
+    x = x + L.mlp_block(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig, pc=None) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(cdt) @ params["in_proj"].to(cdt)
+    if cfg.frontend == "vision_patches":
+        patches = batch["patches"].to(cdt) @ params["connector"].to(cdt)
+        toks = L.embed(params["embed"], batch["tokens"], cfg, pc)
+        return torch.cat([patches, toks], dim=1)
+    return L.embed(params["embed"], batch["tokens"], cfg, pc)
+
+
+def _check(pc, remat: str = "none") -> None:
+    if pc is not None:
+        raise NotImplementedError("a ParallelCtx (pc) comes with the port's parallel "
+                                  "slice (ROADMAP Queue 1, item 9)")
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r} comes with the port's training "
+                                  "slice (ROADMAP Queue 1, item 8)")
+
+
+def forward(
+    params: dict,
+    batch: dict,
+    cfg: ModelConfig,
+    pc=None,
+    *,
+    remat: str = "none",
+    return_cache: bool = False,
+    kv_dtype=torch.bfloat16,
+):
+    """Train / prefill forward. Returns logits (B, S, V); with return_cache also
+    returns a stacked (L-leading) KV cache holding the prefilled keys/values,
+    each (L, B, KV, S, hd)."""
+    _check(pc, remat)
+    x = _embed_inputs(params, batch, cfg, pc)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    cdt = dtype_of(cfg.compute_dtype)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        y, _ = block_apply(lp, x, cfg, positions=positions)
+        if return_cache:
+            # re-project k/v for the cache, as the reference does
+            xin = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps).to(cdt)
+            k = (xin @ lp["attn"]["wk"].to(cdt)).reshape(b, s, kvh, hd)
+            v = (xin @ lp["attn"]["wv"].to(cdt)).reshape(b, s, kvh, hd)
+            if cfg.use_qk_norm:
+                k = L.rmsnorm(lp["attn"]["k_norm"], k, cfg.norm_eps)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+            ks.append(k.transpose(1, 2).to(kv_dtype))
+            vs.append(v.transpose(1, 2).to(kv_dtype))
+        x = y
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    if return_cache:
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype="bfloat16",
+               device="cuda") -> dict:
+    """A stacked (L-leading) cache of zeros."""
+    return kvcache.init_cache(batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim,
+                              kv_dtype, lead=(cfg.num_layers,), device=device)
+
+
+def decode_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,
+    cache_index: int,
+    cfg: ModelConfig,
+    pc=None,
+) -> tuple[torch.Tensor, dict]:
+    """One decode step. tokens: (B, s), written at ``cache_index``. cache:
+    stacked (L, ...) kv cache, updated in place. Returns (logits (B, s, V),
+    cache)."""
+    _check(pc)
+    x = L.embed(params["embed"], tokens, cfg, pc)
+    b, s, _ = x.shape
+    positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
+                 ).expand(b, s)
+    for i in range(cfg.num_layers):
+        layer_cache = {name: t[i] for name, t in cache.items()}
+        x, _ = block_apply(_layer(params["layers"], i), x, cfg, positions=positions,
+                           cache=layer_cache, cache_index=cache_index)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits, cache

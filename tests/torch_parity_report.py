@@ -15,9 +15,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_attention as ta  # noqa: E402
 import test_torch_convnets as tc  # noqa: E402
 import test_torch_kernels as tk  # noqa: E402
 import test_torch_search as ts  # noqa: E402
+import test_torch_transformer as tt  # noqa: E402
 
 
 def convnet_rows():
@@ -98,8 +100,101 @@ def controller_rows():
     return rows
 
 
+def attention_rows():
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        err = 0.0
+        for shape in ta.SHAPES + (ta.CAUSAL_RAGGED if dtype == "float32" else []):
+            q, k, v = ta._qkv(*shape[:6])
+            err = max(err, float(np.max(np.abs(ta._plain(q, k, v, shape[6], dtype)
+                                               - ta._pallas(q, k, v, shape[6], dtype)))))
+        rows.append((f"kernels.ref.flash_attention_ref vs Pallas (interpret), {dtype}"
+                     + (", incl. causal sq != skv" if dtype == "float32" else ""),
+                     "test_plain_version_matches_pallas_kernel", ta.TOL[dtype], err))
+    err = 0.0
+    for impl, fn, jfn in (("naive", ta.TL.naive_attention, ta._naive),
+                          ("chunked", ta.TL.chunked_attention, ta._chunked)):
+        for q_offset, kv_len, causal in ((0, None, True), (0, None, False), (30, 35, True)):
+            q, k, v = ta._model_layout(3)
+            kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+            if impl == "chunked":
+                kw["chunk"] = 16
+            want = np.asarray(jfn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+            got = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw)
+            err = max(err, float(np.max(np.abs(got.numpy() - want))))
+    rows.append(("layers.naive/chunked_attention with q_offset/kv_len",
+                 "test_attention_cores_match_reference", ta.CORE_TOL, err))
+    return rows
+
+
+def transformer_rows():
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        logits, cache = 0.0, 0.0
+        for name in tt.CFGS:
+            want_logits, want_cache = tt._reference_forward(name, dtype)
+            params = tt.TT.params_from_reference(tt._params(name), "cpu")
+            for impl in ("flash_pallas", "chunked"):
+                cfg = tt._port(tt._cfg(name, dtype), attn_impl=impl)
+                got, got_cache = tt.TT.forward(params, {"tokens": torch.from_numpy(
+                    tt._tokens(name, tt.P))}, cfg, return_cache=True)
+                logits = max(logits, float(tt._rel(got.numpy(), want_logits)))
+                cache = max(cache, *(float(tt._rel(got_cache[n].float().numpy(), want_cache[n]))
+                                     for n in "kv"))
+        rows.append((f"transformer.forward logits / max, 3 configs × flash_pallas, chunked, "
+                     f"{dtype} compute", "test_forward_and_cache_match_reference",
+                     tt.LOGIT_TOL[dtype], logits))
+        rows.append((f"transformer.forward return_cache k/v / max, {dtype} compute",
+                     "test_forward_and_cache_match_reference", tt.CACHE_TOL[dtype], cache))
+    err = 0.0
+    for i, name in enumerate(sorted(tt.FRONTENDS)):
+        cfg = tt.dataclasses.replace(tt.FRONTENDS[name], compute_dtype="float32")
+        np_params = tt._draw_params(cfg, 10 + i)
+        rng = np.random.default_rng(8)
+        if cfg.frontend == "vision_patches":
+            batch = {"patches": rng.normal(size=(tt.B, cfg.num_patches, cfg.frontend_dim)),
+                     "tokens": rng.integers(0, cfg.vocab_size, size=(tt.B, tt.P))}
+        else:
+            batch = {"frames": rng.normal(size=(tt.B, tt.P, cfg.frontend_dim))}
+        batch = {n: a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+                 for n, a in batch.items()}
+        want = np.asarray(tt.RT.forward(np_params, batch, cfg))
+        got = tt.TT.forward(tt.TT.params_from_reference(np_params, "cpu"),
+                            {n: torch.from_numpy(a) for n, a in batch.items()},
+                            tt._port(cfg, attn_impl="flash_pallas"))
+        err = max(err, float(tt._rel(got.numpy(), want)))
+    rows.append(("transformer.forward logits / max, vlm and audio inputs (pixtral, hubert "
+                 "smoke), fp32", "test_frontend_families_match_reference",
+                 tt.LOGIT_TOL["float32"], err))
+    for kind, (kv_dtype, lazy) in tt.KINDS.items():
+        err = 0.0
+        for name in tt.CFGS:
+            cfg = tt.dataclasses.replace(tt._cfg(name), lazy_kv_dequant=lazy)
+            toks = tt._tokens(name, tt.P + tt.STEPS)
+            _, pre = tt._reference_forward(name, "float32")
+            want = np.asarray(tt._reference_decode(
+                tt._params(name), jnp.asarray(pre["k"], jnp.bfloat16),
+                jnp.asarray(pre["v"], jnp.bfloat16), jnp.asarray(toks[:, tt.P:]), cfg, kv_dtype))
+            tcfg = tt._port(cfg)
+            params = tt.TT.params_from_reference(tt._params(name), "cpu")
+            _, tpre = tt.TT.forward(params, {"tokens": torch.from_numpy(toks[:, :tt.P])}, tcfg,
+                                    return_cache=True)
+            tcache = tt.TK.cache_update(tt.api.init_cache(tcfg, tt.B, tt.MAX, kv_dtype, "cpu"),
+                                        tpre["k"].transpose(-3, -2),
+                                        tpre["v"].transpose(-3, -2), 0)
+            for t in range(tt.STEPS):
+                got, tcache = tt.api.decode_step(
+                    params, tcache, torch.from_numpy(toks[:, tt.P + t:tt.P + t + 1]),
+                    tt.P + t, tcfg)
+                err = max(err, float(tt._rel(got[:, 0].numpy(), want[t])))
+        rows.append((f"decode_step logits / max, 6 steps, {kind} cache, 3 configs, fp32 compute",
+                     "test_decode_steps_match_reference", tt.DECODE_TOL, err))
+    return rows
+
+
 def main():
-    rows = convnet_rows() + kernel_rows() + controller_rows()
+    rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
+            + transformer_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
