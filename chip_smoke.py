@@ -6,46 +6,66 @@
 On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
 /usr/local/cuda) it:
 
-1. build   — compiles the ``ibn_pointwise`` and ``flash_attention`` kernels
-             from the repository's sources (one ``nvcc`` each, started
-             together) and prints ptxas's report;
-2. kernel  — at every distinct 1×1 shape of full-width MobileNetV2,
-             EfficientNet-B0 (SE, swish) and the manual EdgeTPU model at
-             224 px, batch 8, and of the search's MobileNetV2 space at the
-             proxy's 32 px, batch 64, holds the kernel's forward and backward
-             (dx, dw, db) against the plain PyTorch version on the card, and
-             times kernel, plain version and ``torch.addmm`` + act;
-3. model   — the same three models at full width, 1000 classes, 224 px: the
-             card's logits against the port's CPU forward on the same params,
-             then 5 SGD steps of ``proxy.train_step`` at batch 16;
-4. search  — the main path: ``SearchSession.joint`` over the full-width
-             MobileNetV2 space with ``TrainedAccuracy`` and the PPO
-             controller on the card, with the kernel's launch count reset
-             just before and read just after;
-5. profile — one training step of a search candidate under torch.profiler:
-             wall time, device time, and the kernel's share of it;
+1. build     — compiles the four kernels (``ibn_pointwise``, ``flash_attention``,
+               ``ssd_scan``, ``gmm``) from the repository's sources (one ``nvcc``
+               each, started together) and prints ptxas's report;
+2. kernel    — at every distinct 1×1 shape of full-width MobileNetV2,
+               EfficientNet-B0 (SE, swish) and the manual EdgeTPU model at
+               224 px, batch 8, and of the search's MobileNetV2 space at the
+               proxy's 32 px, batch 64, holds the kernel's forward and backward
+               (dx, dw, db) against the plain PyTorch version on the card, and
+               times kernel, plain version and ``torch.addmm`` + act;
+3. model     — the same three models at full width, 1000 classes, 224 px: the
+               card's logits against the port's CPU forward on the same params,
+               then 5 SGD steps of ``proxy.train_step`` at batch 16;
+4. search    — the main path: ``SearchSession.joint`` over the full-width
+               MobileNetV2 space with ``TrainedAccuracy`` and the PPO
+               controller on the card;
+5. profile   — one training step of a search candidate under torch.profiler:
+               wall time, device time, and the kernel's share of it;
 6. attention — holds ``flash_attention`` against its plain version on the
-             card at tests/test_kernels.py's shapes (fp32 and bf16), causal
-             with sq != skv, and the served model's prefill shape (B 8, H 16,
-             KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025); times the
-             kernel, the plain version and ``scaled_dot_product_attention``;
-7. serve   — the second main path: qwen3-1.7B at full width with
-             ``attn_impl="flash_pallas"``, random weights from a seed on the
-             card, 8 prompts of 1024 tokens through ``make_prefill_step``
-             (exactly 28 kernel launches) and the ``return_cache`` forward,
-             the k/v written into a preallocated 2048-position bf16 cache,
-             32 greedy steps of ``make_decode_step``, the first step held
-             against a forward over the prompt plus its token, 4 steps over
-             int8 caches; ms per prefill and per decode step, tokens/s, and
-             where the device time goes (torch.profiler);
-8. llm     — the same model cut to 4 layers, batch 1, 64 tokens: the card's
-             logits (kernel) against the port's CPU forward (plain version);
-9. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+               card at tests/test_kernels.py's shapes (fp32 and bf16), causal
+               with sq != skv, and the served model's prefill shape (B 8, H 16,
+               KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025); times the
+               kernel, the plain version and ``scaled_dot_product_attention``;
+7. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
+               tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
+               ragged S 1000, and zamba2-7b's H 112 N 64, and the plain version
+               against the sequential recurrence; times kernel and plain
+               version (no single PyTorch call computes the scan);
+8. gmm       — holds ``gmm`` against its plain version (fp32 and bf16) at
+               tests/test_kernels.py's shapes, ragged edges, strided views and
+               qwen2-moe-a2.7b's three expert products; times kernel, plain
+               version and ``torch.bmm``;
+9. serve     — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
+               random weights from a seed on the card, 8 prompts of 1024 tokens
+               through ``make_prefill_step`` (exactly 28 kernel launches) and the
+               ``return_cache`` forward, the k/v written into a preallocated
+               2048-position bf16 cache, 32 greedy steps of ``make_decode_step``,
+               the first step held against a forward over the prompt plus its
+               token, 4 steps over int8 caches; ms per prefill and per decode
+               step, tokens/s, and where the device time goes (torch.profiler);
+10. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
+               ``ssd_scan`` launches), 64 decode steps over the prompt from a zero
+               cache then 32 greedy steps at batch 8, decode vs forward held in
+               fp32 and for the timed bf16 decode; times and the profiler's
+               breakdown;
+11. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
+               8 x 1024 (exactly 72 ``gmm`` and 24 ``flash_attention``
+               launches), a 2048-position bf16 cache filled by one multi-token
+               decode step, 32 greedy steps, decode vs forward at 8 x 256 tokens
+               (no capacity drops); times and the profiler's breakdown;
+12. llm       — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
+               whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups), fp32
+               and bf16: the card's logits (kernels) against the port's CPU
+               forward (plain versions), with each kernel's launch count;
+13. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search for ibn_pointwise, serve for flash_attention) runs
-with every kernel's launch count set to 0 just before it and read just
-after. Any failure raises and exits non-zero; nothing falls back to the CPU.
-TF32 is off for matmuls and cuDNN convolutions.
+Each main path (search for ibn_pointwise; serve, serve_ssm and serve_moe for
+flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
+to 0 just before it and read just after. Any failure raises and exits
+non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
+convolutions.
 ``--json PATH`` also writes every per-shape measurement to PATH.
 """
 from __future__ import annotations
@@ -71,9 +91,10 @@ from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels import flash_attention, ibn_conv  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref, ibn_pointwise_ref  # noqa: E402
-from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.kernels import flash_attention, gmm, ibn_conv, ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
+                                     ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
+from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
@@ -101,11 +122,59 @@ SERVE_BATCH, PROMPT, CACHE_LEN, DECODE_STEPS, INT8_STEPS = 8, 1024, 2048, 32, 4
 # another order. bf16: every product and norm rounds to 8 bits of mantissa at
 # other places (the card's against the CPU's products, decode's chunked
 # attention against the prefill's kernel, one-row against many-row products),
-# through up to 28 layers; a wrong mask or position moves logits by O(1).
+# through up to 28 layers; a wrong mask or position moves logits by O(1). The
+# llm phase's bf16 cuts hold 5e-2, except mamba2-370m's whole 48 layers: its
+# card vs CPU bf16 logits measure 5.14e-2 while the CPU's own bf16 logits sit
+# 7.8e-2 from its fp32 ones on the same params and tokens, so that cut holds
+# 6.5e-2, between the two
 LLM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LLM_BF16_TOL = {"mamba2_370m": 6.5e-2}
 # int8 cache against the bf16 cache: every cached k/v moves by up to 1/254 of
 # its row's largest value, in all 28 layers
 INT8_TOL = 0.1
+# ssd_scan against its plain version, relative to max |plain value|. fp32:
+# the chunk's cumsum is a scan in another order and the products sum in
+# another order, which moves exp(cs_i - cs_j) by ~1e-5 where |cs| reaches
+# hundreds; bf16 rounds y to 8 bits of mantissa. The state is fp32 in both.
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# the plain chunked version against the sequential recurrence, absolute, inputs
+# as tests/test_kernels.py draws them (its tolerance)
+SEQ_TOL = 2e-3
+# gmm against its plain version, relative to max |plain value|: fp32 sums in
+# another order; bf16 rounds the output to 8 bits of mantissa
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# tests/test_kernels.py's ssd_scan shapes (b, s, h, p, g, n, chunk), then a
+# ragged tail with G > 1 and a chunk longer than S
+SSD_SMALL = [(2, 64, 4, 16, 1, 32, 16), (1, 128, 4, 8, 2, 16, 32), (2, 96, 2, 32, 1, 64, 32),
+             (1, 48, 8, 16, 4, 8, 48), (1, 37, 4, 16, 2, 16, 16), (2, 20, 2, 8, 1, 8, 64)]
+SSM_ARCH, MOE_ARCH, HYBRID_ARCH = "mamba2_370m", "qwen2_moe_a2_7b", "zamba2_7b"
+# mamba2-370m's prefill scan (8 x 1024 tokens; chunk = ssm_chunk), the same
+# at a ragged S, and zamba2-7b's widths (H 112, N 64)
+SERVE_SSD = (SERVE_BATCH, PROMPT, 32, 64, 1, 128, 256)
+ZAMBA_SSD = (2, 512, 112, 64, 1, 64, 256)
+# serve_ssm: decode steps over the prompt's first tokens from a zero cache,
+# held against a forward over those tokens: in fp32 compute (the recurrence
+# against the chunked scan, fp32 through 48 layers) at 1e-3, and the timed
+# bf16 decode against the bf16 forward at 0.1. The two bf16 paths round at
+# other places through 48 layers: they measure 7.97e-2 apart, each about
+# 8e-2 from fp32, while a wrong state or position moves logits by O(1)
+SSM_TEACHER = 64
+SSM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+# serve_moe: decode vs forward at 8 x 256 tokens, where capacity_for never
+# drops (8 x 256 x 4 assignments <= 8192)
+MOE_CHECK_LEN = 256
+KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
+           "ssd_scan": ssd_scan, "gmm": gmm}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a main path."""
+    for mod in KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
 
 
 def card_line() -> str:
@@ -316,8 +385,7 @@ def search_phase(card: str) -> dict:
     )
     rcfg = scenarios.get(MAIN_PATH_SCENARIO).reward_config()
     torch.cuda.synchronize()
-    ibn_conv.LAUNCHES = 0
-    flash_attention.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = session.joint(rcfg=rcfg)
     torch.cuda.synchronize()
@@ -469,29 +537,51 @@ def _device_times(prof, steps_run: int) -> dict:
     return out
 
 
-def _print_breakdown(label: str, wall_ms: float, per_kernel: dict, card: str) -> float:
+def _print_breakdown(label: str, wall_ms: float, per_kernel: dict, card: str,
+                     phase: str = "serve", kernels=(("flash_attention", "attn_fwd"),)) -> dict:
+    """Prints device time, busy share and each named kernel's share (by a
+    substring of its symbol); returns {kernel: device ms}."""
     device_ms = sum(per_kernel.values())
-    attn_ms = sum(v for k, v in per_kernel.items() if "attn_fwd" in k)
+    shares = {name: sum(v for k, v in per_kernel.items() if key in k) for name, key in kernels}
     if device_ms == 0.0:
-        print(f"serve: {label} device time not measured (the profiler saw no CUDA "
+        print(f"{phase}: {label} device time not measured (the profiler saw no CUDA "
               f"activity)  [{card}]")
-        return 0.0
-    print(f"serve: {label} {wall_ms:.2f} ms wall, {device_ms:.3f} ms on the device "
-          f"({device_ms / wall_ms:.1%} busy), flash_attention {attn_ms:.3f} ms "
-          f"({attn_ms / device_ms:.1%} of device time), {len(per_kernel)} kernel names  "
+        return shares
+    parts = ", ".join(f"{name} {ms:.3f} ms ({ms / device_ms:.1%} of device time)"
+                      for name, ms in shares.items())
+    print(f"{phase}: {label} {wall_ms:.2f} ms wall, {device_ms:.3f} ms on the device "
+          f"({device_ms / wall_ms:.1%} busy), {parts}, {len(per_kernel)} kernel names  "
           f"[{card}]")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"serve:   {ms:.4f} ms  {name[:90]}")
-    return attn_ms
+        print(f"{phase}:   {ms:.4f} ms  {name[:90]}")
+    return shares
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-def serve_phase(card: str) -> dict:
+def _prefill_timings(prefill, params, prompt) -> tuple[float, list]:
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times), times
+
+
+def _profiled(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_times(prof, 1)
+
+
+def serve_phase(card: str) -> dict:
     run = configs.make_run(SERVE_ARCH, "decode_32k", model_attn_impl="flash_pallas")
     cfg = run.model
     prefill, _, _ = steps.make_prefill_step(run)
@@ -507,8 +597,7 @@ def serve_phase(card: str) -> dict:
     torch.cuda.synchronize()
 
     # --- the main path: counts at 0 just before, read just after
-    ibn_conv.LAUNCHES = 0
-    flash_attention.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     logits = prefill(params, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -537,7 +626,7 @@ def serve_phase(card: str) -> dict:
         if not torch.isfinite(lg).all():
             raise AssertionError(f"decode step {i}: non-finite logits")
         tokens.append(tok)
-    path = {"flash_attention": flash_attention.LAUNCHES, "ibn_pointwise": ibn_conv.LAUNCHES}
+    path = launch_counts()
     if path["flash_attention"] != 2 * cfg.num_layers:
         raise AssertionError(f"the serve path launched flash_attention "
                              f"{path['flash_attention']} times, not {2 * cfg.num_layers}")
@@ -580,23 +669,11 @@ def serve_phase(card: str) -> dict:
     del pre
 
     # --- steady-state timing and where the device time goes
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    prefill_ms_steady = min(times)
+    prefill_ms_steady, times = _prefill_timings(prefill, params, prompt)
     decode_ms = float(np.median(step_ms[1:]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-    prefill_kernels = _device_times(prof, 1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode(params, cache, tokens[:, -1:], PROMPT + DECODE_STEPS)
-        torch.cuda.synchronize()
-    decode_kernels = _device_times(prof, 1)
+    prefill_kernels = _profiled(lambda: prefill(params, {"tokens": prompt}))
+    decode_kernels = _profiled(lambda: decode(params, cache, tokens[:, -1:],
+                                              PROMPT + DECODE_STEPS))
 
     print(f"serve: {SERVE_ARCH} full width ({n_params / 1e9:.3f} B params, fp32 weights, bf16 "
           f"compute, attn_impl=flash_pallas), init on the card {init_s:.1f} s  [{card}]")
@@ -614,7 +691,7 @@ def serve_phase(card: str) -> dict:
               f"{r['first_step_rel_err']:.3g} of max |logit| from the bf16 cache's (tolerance "
               f"{INT8_TOL}), greedy tokens agree {r['token_agreement']:.3f}  [{card}]")
     attn_ms = _print_breakdown(f"prefill ({SERVE_BATCH} x {PROMPT})", prefill_ms_steady,
-                               prefill_kernels, card)
+                               prefill_kernels, card)["flash_attention"]
     _print_breakdown("decode step", decode_ms, decode_kernels, card)
     return {"n_params": n_params, "init_s": init_s, "prefill_ms": prefill_ms,
             "prefill_ms_steady": prefill_ms_steady, "prefill_times_ms": times,
@@ -627,33 +704,523 @@ def serve_phase(card: str) -> dict:
             "prefill_kernels_ms": prefill_kernels, "decode_kernels_ms": decode_kernels}
 
 
+def ssd_bound_parts_ms(b, s, h, p, g, n, chunk, dtype) -> tuple[float, float]:
+    """The two lower bounds of one chunk scan in ms: bytes (x, dt, A, B, C
+    read once, y and the fp32 final state written once) over the memory
+    rate; and the operations the chunked algorithm needs over the peak rate
+    for the input type: per chunk of L positions, C·Bᵀ and its product with
+    x·dt over the L(L+1)/2 pairs at or below the diagonal (2(N + P)
+    operations each), C·stateᵀ and the state update (4PN per position)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (itemsize * (2 * b * s * h * p + 2 * b * s * g * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    q = min(chunk, s)
+    ops = sum(2 * (n + p) * (ln * (ln + 1) // 2) + 4 * p * n * ln
+              for ln in (min(q, s - r0) for r0 in range(0, s, q)))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            float(b * h * ops) / PEAK_FLOP_PER_S[dtype] * 1e3)
+
+
+def ssd_inputs(b, s, h, p, g, n, dtype, gen):
+    """x, dt = softplus(normal), A = -exp(normal), and B, C as views into
+    one (B, S, 2GN) tensor, as the model passes them."""
+    x = torch.randn((b, s, h, p), generator=gen, device=DEV).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=DEV))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
+    bc = torch.randn((b, s, 2 * g * n), generator=gen, device=DEV).to(dtype)
+    return x, dt, A, bc[..., :g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n)
+
+
+def check_ssd(shape, dtype, gen, timed: bool) -> dict:
+    """ssd_scan against its plain version (ref.ssd_chunked) on the card."""
+    b, s, h, p, g, n, chunk = shape
+    x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, dtype, gen)
+    y, st = ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk)
+    want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    err = rel_err(y, want_y)[0]
+    rel = err / want_y.float().abs().max().item()
+    st_rel = (st - want_st).abs().max().item() / want_st.abs().max().item()
+    rec = {"shape": shape, "dtype": str(dtype)[6:], "max_abs_err": err, "rel_err": rel,
+           "state_rel_err": st_rel, "tol": SSD_TOL[dtype]}
+    finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
+    if not (finite and rel <= SSD_TOL[dtype] and st_rel <= SSD_TOL[torch.float32]):
+        raise AssertionError(f"ssd_scan disagrees with its plain version: {rec}")
+    if timed:
+        rec["ms"] = time_ms(lambda: ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk))
+        rec["plain_ms"] = time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk), iters=5)
+        rec["library_ms"] = None  # no single PyTorch call computes the chunk scan
+        rec["bound_bytes_ms"], rec["bound_ops_ms"] = ssd_bound_parts_ms(*shape, dtype)
+        rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
+        rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
+                           else "operations")
+    return rec
+
+
+def ssd_phase(card: str) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    records, seq_err = [], 0.0
+    for shape in SSD_SMALL:
+        for dtype in (torch.float32, torch.bfloat16):
+            records.append(check_ssd(shape, dtype, gen, timed=False))
+        x, dt, A, Bm, Cm = ssd_inputs(*shape[:6], torch.float32, gen)
+        y, st = ssd_chunked(x, dt, A, Bm, Cm, shape[6])
+        ry, rst = ssd_scan_ref(x, dt, A, Bm, Cm, shape[6])
+        seq_err = max(seq_err, (y - ry).abs().max().item(), (st - rst).abs().max().item())
+    if not seq_err <= SEQ_TOL:
+        raise AssertionError(f"the plain chunked scan against the sequential recurrence: "
+                             f"{seq_err} (tolerance {SEQ_TOL})")
+    b, s, h, p, g, n, chunk = SERVE_SSD
+    for shape in ((b, 1000, h, p, g, n, chunk), ZAMBA_SSD):
+        for dtype in (torch.float32, torch.bfloat16):
+            records.append(check_ssd(shape, dtype, gen, timed=False))
+    records.append(check_ssd(SERVE_SSD, torch.float32, gen, timed=False))
+    main = check_ssd(SERVE_SSD, torch.bfloat16, gen, timed=True)
+    records.append(main)
+    worst = max(r["rel_err"] / r["tol"] for r in records)
+    print(f"ssd: {len(records)} checks against the plain version (fp32 and bf16; "
+          f"tests/test_kernels.py's shapes, ragged S 1000, zamba2's H 112 N 64); worst "
+          f"error {worst:.3g} of its tolerance; plain vs sequential recurrence "
+          f"{seq_err:.3g} (tolerance {SEQ_TOL})  [{card}]")
+    print(f"ssd: B {b} S {s} H {h} P {p} G {g} N {n} chunk {chunk} bf16: kernel "
+          f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, no library call, bound "
+          f"{main['bound_ms']:.4f} ms ({main['bound_by']}; bytes {main['bound_bytes_ms']:.4f}, "
+          f"operations {main['bound_ops_ms']:.4f}); y {main['rel_err']:.3g} of max |y|, "
+          f"state {main['state_rel_err']:.3g}  [{card}]")
+    return {"records": records, "main": main, "seq_err": seq_err}
+
+
+def gmm_bound_parts_ms(e, c, d, f, dtype) -> tuple[float, float]:
+    """The two lower bounds of one grouped product in ms: bytes (x and w
+    read once, y written once) over the memory rate, and 2·E·C·D·F
+    operations over the peak rate for the input type."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = itemsize * (e * c * d + e * d * f + e * c * f)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            2.0 * e * c * d * f / PEAK_FLOP_PER_S[dtype] * 1e3)
+
+
+def check_gmm(e, c, d, f, dtype, gen, timed: bool, strided: bool = False) -> dict:
+    """gmm against its plain version (ref.gmm_ref) on the card; ``strided``
+    passes x with every other row and w as a transposed view."""
+    x = torch.randn((e, 2 * c if strided else c, d), generator=gen, device=DEV).to(dtype)
+    w = (torch.randn((e, f, d) if strided else (e, d, f), generator=gen, device=DEV)
+         / math.sqrt(d)).to(dtype)
+    if strided:
+        x, w = x[:, ::2], w.transpose(1, 2)
+    y = gmm.launch(x, w)
+    want = gmm_ref(x, w)
+    torch.cuda.synchronize()
+    err = rel_err(y, want)[0]
+    rel = err / want.float().abs().max().item()
+    rec = {"shape": (e, c, d, f), "dtype": str(dtype)[6:], "strided": strided,
+           "max_abs_err": err, "rel_err": rel, "tol": GMM_TOL[dtype]}
+    if not (torch.isfinite(y.float()).all() and rel <= GMM_TOL[dtype]):
+        raise AssertionError(f"gmm disagrees with its plain version: {rec}")
+    if timed:
+        lib = torch.bmm(x, w)
+        rec["library_rel_err"] = (lib.float() - want.float()).abs().max().item() / \
+            want.float().abs().max().item()
+        rec["ms"] = time_ms(lambda: gmm.launch(x, w))
+        rec["plain_ms"] = time_ms(lambda: gmm_ref(x, w), iters=5)
+        rec["library_ms"] = time_ms(lambda: torch.bmm(x, w))
+        rec["bound_bytes_ms"], rec["bound_ops_ms"] = gmm_bound_parts_ms(e, c, d, f, dtype)
+        rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
+        rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
+                           else "operations")
+    return rec
+
+
+def moe_gmm_shapes() -> dict:
+    """qwen2-moe-a2.7b's expert products (E, C, D, F): the prefill of
+    8 x 1024 tokens (capacity 688) and a decode step at batch 8 (C 32)."""
+    cfg = configs.get(MOE_ARCH)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    cap = moe.capacity_for(SERVE_BATCH * PROMPT, cfg)
+    dec = moe.capacity_for(SERVE_BATCH, cfg)
+    return {"gate/up": (e, cap, d, f), "down": (e, cap, f, d), "decode gate/up": (e, dec, d, f)}
+
+
+def gmm_phase(card: str) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    records = []
+    # tests/test_kernels.py's shapes, then ragged edges and strided views
+    for shape in ((4, 64, 32, 48), (2, 100, 70, 30), (8, 128, 256, 128), (1, 8, 8, 8),
+                  (3, 129, 33, 257)):
+        for dtype in (torch.float32, torch.bfloat16):
+            records.append(check_gmm(*shape, dtype, gen, timed=False))
+            records.append(check_gmm(*shape, dtype, gen, timed=False, strided=True))
+    main = {}
+    for name, shape in moe_gmm_shapes().items():
+        records.append(check_gmm(*shape, torch.float32, gen, timed=False))
+        main[name] = check_gmm(*shape, torch.bfloat16, gen, timed=True)
+        records.append(main[name])
+    worst = max(r["rel_err"] / r["tol"] for r in records)
+    print(f"gmm: {len(records)} checks against the plain version (fp32 and bf16, "
+          f"tests/test_kernels.py's shapes, ragged edges, strided views, qwen2-moe's "
+          f"three products); worst error {worst:.3g} of its tolerance  [{card}]")
+    for name, r in main.items():
+        print(f"gmm: {name} (E, C, D, F) = {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, "
+              f"operations {r['bound_ops_ms']:.4f}); {r['rel_err']:.3g} of max |y| (bmm "
+              f"{r['library_rel_err']:.3g})  [{card}]")
+    return {"records": records, "main": main}
+
+
+def serve_ssm_phase(card: str) -> dict:
+    """mamba2-370m at full width: prefill 8 x 1024 on ssd_scan (one launch
+    per layer), decode from a zero cache (the recurrence in torch, as in the
+    reference), greedy steps; decode vs forward held in fp32 and, for the
+    timed bf16 decode, in bf16."""
+    run = configs.make_run(SSM_ARCH, "decode_32k")
+    cfg = run.model
+    prefill, _, _ = steps.make_prefill_step(run)
+    decode, _, _, _ = steps.make_decode_step(run)
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(6)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
+    prefill(params, {"tokens": prompt})  # warm-up
+    torch.cuda.synchronize()
+
+    # --- the main path: counts at 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = ssd_scan.LAUNCHES
+    if prefill_launches != cfg.num_layers:
+        raise AssertionError(f"prefill launched ssd_scan {prefill_launches} times, not once "
+                             f"per layer ({cfg.num_layers})")
+    if logits.shape != (SERVE_BATCH, PROMPT, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    del logits
+    cache = api.init_cache(cfg, SERVE_BATCH, 0, device=DEV)
+    step_ms, tokens = [], []
+    for i in range(SSM_TEACHER + DECODE_STEPS):
+        tok_in = prompt[:, i:i + 1] if i < SSM_TEACHER else tok
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, lg, cache = decode(params, cache, tok_in, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"decode step {i}: non-finite logits")
+        if i == SSM_TEACHER - 1:
+            bf16_last = lg[:, 0].float()
+        if i >= SSM_TEACHER - 1:
+            tokens.append(tok)
+    path = launch_counts()
+    tokens = torch.cat(tokens, dim=1)
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        raise AssertionError("decode produced token ids outside the vocabulary")
+
+    # --- decode vs forward over the same SSM_TEACHER tokens: the timed bf16
+    # decode's step SSM_TEACHER - 1, and an fp32 decode of those tokens
+    with torch.no_grad():
+        want, _ = api.forward(params, {"tokens": prompt[:, :SSM_TEACHER]}, cfg)
+        bf16_err = _rel(bf16_last, want[:, -1])
+        cfg32 = cfg.scaled(compute_dtype="float32")
+        cache32 = api.init_cache(cfg32, SERVE_BATCH, 0, device=DEV)
+        for i in range(SSM_TEACHER):
+            lg32, cache32 = api.decode_step(params, cache32, prompt[:, i:i + 1], i, cfg32)
+        want32, _ = api.forward(params, {"tokens": prompt[:, :SSM_TEACHER]}, cfg32)
+    fp32_err = _rel(lg32[:, 0], want32[:, -1])
+    bf16_floor = _rel(want[:, -1].float(), want32[:, -1])  # reported, not a limit
+    for name, err in (("float32", fp32_err), ("bfloat16", bf16_err)):
+        if not err <= SSM_DECODE_TOL[name]:
+            raise AssertionError(f"{name} decode vs forward: {err} of max |logit| (tolerance "
+                                 f"{SSM_DECODE_TOL[name]})")
+    del cache32, want, want32
+
+    prefill_ms_steady, times = _prefill_timings(prefill, params, prompt)
+    decode_ms = float(np.median(step_ms[SSM_TEACHER:]))
+    prefill_kernels = _profiled(lambda: prefill(params, {"tokens": prompt}))
+    decode_kernels = _profiled(lambda: decode(params, cache, tokens[:, -1:],
+                                              SSM_TEACHER + DECODE_STEPS))
+    print(f"serve_ssm: {SSM_ARCH} full width ({n_params / 1e9:.3f} B params, fp32 weights, "
+          f"bf16 compute, chunk {cfg.ssm_chunk}), init on the card {init_s:.1f} s  [{card}]")
+    print(f"serve_ssm: prefill {SERVE_BATCH} x {PROMPT} tokens: {prefill_ms:.2f} ms on the main "
+          f"path, {prefill_ms_steady:.2f} ms steady ({SERVE_BATCH * PROMPT / prefill_ms_steady * 1e3:.0f} "
+          f"tokens/s), {prefill_launches} ssd_scan launches  [{card}]")
+    print(f"serve_ssm: decode at batch {SERVE_BATCH}, {SSM_TEACHER} steps over the prompt from a "
+          f"zero cache then {DECODE_STEPS} greedy: {decode_ms:.2f} ms per step (median of the "
+          f"greedy steps; first {step_ms[0]:.2f} ms), {SERVE_BATCH / decode_ms * 1e3:.1f} "
+          f"tokens/s; main path launches {path}  [{card}]")
+    print(f"serve_ssm: decode step {SSM_TEACHER} vs forward over those {SSM_TEACHER} tokens: "
+          f"fp32 {fp32_err:.3g} of max |logit| (tolerance {SSM_DECODE_TOL['float32']}); the "
+          f"timed bf16 decode {bf16_err:.3g} (tolerance {SSM_DECODE_TOL['bfloat16']}; the bf16 "
+          f"forward's own distance from fp32 {bf16_floor:.3g})  [{card}]")
+    kern = (("ssd_scan", "ssd_chunk_scan"),)
+    ssd_ms = _print_breakdown(f"prefill ({SERVE_BATCH} x {PROMPT})", prefill_ms_steady,
+                              prefill_kernels, card, "serve_ssm", kern)["ssd_scan"]
+    _print_breakdown("decode step", decode_ms, decode_kernels, card, "serve_ssm", kern)
+    return {"n_params": n_params, "init_s": init_s, "prefill_ms": prefill_ms,
+            "prefill_ms_steady": prefill_ms_steady, "prefill_times_ms": times,
+            "prefill_launches": prefill_launches, "path_launches": path,
+            "decode_step_ms": step_ms, "decode_ms": decode_ms,
+            "decode_vs_forward_fp32": fp32_err, "decode_vs_forward_bf16": bf16_err,
+            "forward_bf16_vs_fp32": bf16_floor,
+            "prefill_ssd_device_ms": ssd_ms,
+            "prefill_device_ms": sum(prefill_kernels.values()),
+            "decode_device_ms": sum(decode_kernels.values()),
+            "prefill_kernels_ms": prefill_kernels, "decode_kernels_ms": decode_kernels}
+
+
+class RouteRecorder:
+    """While active, records each ``moe.route`` call's chosen experts
+    (top_e), in call order: one call per MoE layer per forward or decode
+    step."""
+
+    def __enter__(self):
+        self.top_e, self._route = [], moe.route
+
+        def route(x2d, wr, cfg):
+            out = self._route(x2d, wr, cfg)
+            self.top_e.append(out[1])
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+
+class RouteReplay:
+    """While active, makes each ``moe.route`` call choose the experts given
+    for it (in call order), with the weights renormalized from this run's
+    own router probabilities, and counts how many tokens' own top-k would
+    have chosen the same experts. The top-k is a discrete choice between
+    near-tied router values: two runs that round at other places (bf16,
+    card against CPU, decode against forward) can swap one, which moves that
+    token's output by O(1). Replaying one run's choices in the other holds
+    the rest of the computation against it."""
+
+    def __init__(self, top_e):
+        self.replay, self.same, self.total = list(top_e), 0, 0
+
+    def __enter__(self):
+        self._route = moe.route
+        calls = iter(self.replay)
+
+        def route(x2d, wr, cfg):
+            _, own, aux = self._route(x2d, wr, cfg)
+            top_e = next(calls).to(own.device)
+            probs = torch.softmax(x2d.float() @ wr.float(), dim=-1)
+            top_w = probs.gather(-1, top_e)
+            top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+            self.same += int((own.sort(-1).values == top_e.sort(-1).values).all(-1).sum())
+            self.total += own.shape[0]
+            return top_w, top_e, aux
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+    @property
+    def agreement(self) -> float:
+        return self.same / max(self.total, 1)
+
+
+def serve_moe_phase(card: str) -> dict:
+    """qwen2-moe-a2.7b at full width with attn_impl=flash_pallas: prefill
+    8 x 1024 (three gmm and one flash_attention launch per layer), a
+    2048-position bf16 cache filled by one multi-token decode step, greedy
+    steps, and decode vs forward at 8 x 256 tokens."""
+    run = configs.make_run(MOE_ARCH, "decode_32k", model_attn_impl="flash_pallas")
+    cfg = run.model
+    prefill, _, _ = steps.make_prefill_step(run)
+    decode, _, _, _ = steps.make_decode_step(run)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(7)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
+    prefill(params, {"tokens": prompt})  # warm-up
+    torch.cuda.synchronize()
+
+    # --- the main path: counts at 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = launch_counts()
+    if (prefill_launches["gmm"] != 3 * cfg.num_layers
+            or prefill_launches["flash_attention"] != cfg.num_layers):
+        raise AssertionError(f"prefill launched {prefill_launches}, not 3 gmm and 1 "
+                             f"flash_attention per layer ({cfg.num_layers} layers)")
+    if logits.shape != (SERVE_BATCH, PROMPT, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    first = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    cache = api.init_cache(cfg, SERVE_BATCH, CACHE_LEN, "bfloat16", DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, lg, cache = decode(params, cache, prompt, 0)  # fill the cache from the prompt
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    del lg
+    tok, tokens, step_ms = first, [first], []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, lg, cache = decode(params, cache, tok, PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"decode step {i}: non-finite logits")
+        tokens.append(tok)
+    path = launch_counts()
+    tokens = torch.cat(tokens, dim=1)
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        raise AssertionError("decode produced token ids outside the vocabulary")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # --- decode vs forward at 8 x 256 tokens (no capacity drops): the cache
+    # filled from the first 255, then one step of the 256th, against a forward
+    # over all 256, with the forward's expert choices replayed in the timed
+    # decode
+    n = MOE_CHECK_LEN
+    with torch.no_grad():
+        with RouteRecorder() as fwd:
+            want, _ = api.forward(params, {"tokens": prompt[:, :n]}, cfg)
+        routes = [t.reshape(SERVE_BATCH, n, -1) for t in fwd.top_e]
+        replay = ([r[:, :n - 1].reshape(-1, r.shape[-1]) for r in routes]
+                  + [r[:, n - 1] for r in routes])
+        short = api.init_cache(cfg, SERVE_BATCH, n, "bfloat16", DEV)
+        with RouteReplay(replay) as rep:
+            decode(params, short, prompt[:, :n - 1], 0)
+            _, got, _ = decode(params, short, prompt[:, n - 1:n], n - 1)
+    del short
+    got, want = got[:, 0].float(), want[:, -1].float()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    decode_err = _rel(got, want)
+    if not decode_err <= LLM_TOL["bfloat16"]:
+        raise AssertionError(f"decode vs forward at position {n - 1}: {decode_err} of max "
+                             f"|logit| (tolerance {LLM_TOL['bfloat16']})")
+    route_agree = rep.agreement
+
+    prefill_ms_steady, times = _prefill_timings(prefill, params, prompt)
+    decode_ms = float(np.median(step_ms[1:]))
+    prefill_kernels = _profiled(lambda: prefill(params, {"tokens": prompt}))
+    decode_kernels = _profiled(lambda: decode(params, cache, tokens[:, -1:],
+                                              PROMPT + DECODE_STEPS))
+    print(f"serve_moe: {MOE_ARCH} full width ({n_params / 1e9:.3f} B params, fp32 weights, "
+          f"bf16 compute, attn_impl=flash_pallas), init on the card {init_s:.1f} s, peak "
+          f"{peak_gb:.1f} GB  [{card}]")
+    print(f"serve_moe: prefill {SERVE_BATCH} x {PROMPT} tokens: {prefill_ms:.2f} ms on the main "
+          f"path, {prefill_ms_steady:.2f} ms steady ({SERVE_BATCH * PROMPT / prefill_ms_steady * 1e3:.0f} "
+          f"tokens/s), launches {prefill_launches}  [{card}]")
+    print(f"serve_moe: cache fill ({PROMPT} tokens, one decode step) {fill_ms:.2f} ms; decode "
+          f"{DECODE_STEPS} greedy steps over a {CACHE_LEN}-position bf16 cache: {decode_ms:.2f} "
+          f"ms per step (median; first {step_ms[0]:.2f} ms), {SERVE_BATCH / decode_ms * 1e3:.1f} "
+          f"tokens/s; main path launches {path}  [{card}]")
+    print(f"serve_moe: decode vs forward at position {n - 1} ({SERVE_BATCH} x {n} tokens, the "
+          f"forward's expert choices replayed): {decode_err:.3g} of max |logit| (tolerance "
+          f"{LLM_TOL['bfloat16']}), argmax agreement {agree:.3f}; decode's own top-k chose "
+          f"the same experts for {route_agree:.3f} of (token, layer) pairs  [{card}]")
+    kern = (("gmm", "gmm_"), ("flash_attention", "attn_fwd"))
+    shares = _print_breakdown(f"prefill ({SERVE_BATCH} x {PROMPT})", prefill_ms_steady,
+                              prefill_kernels, card, "serve_moe", kern)
+    _print_breakdown("decode step", decode_ms, decode_kernels, card, "serve_moe", kern)
+    return {"n_params": n_params, "init_s": init_s, "peak_gb": peak_gb,
+            "prefill_ms": prefill_ms, "prefill_ms_steady": prefill_ms_steady,
+            "prefill_times_ms": times, "prefill_launches": prefill_launches,
+            "path_launches": path, "fill_ms": fill_ms, "decode_step_ms": step_ms,
+            "decode_ms": decode_ms, "decode_vs_forward_rel_err": decode_err,
+            "route_agreement": route_agree, "argmax_agreement": agree,
+            "prefill_shares_ms": shares, "prefill_device_ms": sum(prefill_kernels.values()),
+            "decode_device_ms": sum(decode_kernels.values()),
+            "prefill_kernels_ms": prefill_kernels, "decode_kernels_ms": decode_kernels}
+
+
+def _cut_config(arch: str, compute: str):
+    """The llm phase's cut of ``arch``: qwen3-1.7B at 4 layers, mamba2-370m
+    whole, qwen2-moe-a2.7b at 2 layers (both with flash_pallas), zamba2-7b at
+    2 groups; full width."""
+    base = configs.get(arch).scaled(compute_dtype=compute)
+    if arch == SERVE_ARCH:
+        return base.scaled(num_layers=4, attn_impl="flash_pallas")
+    if arch == MOE_ARCH:
+        return base.scaled(num_layers=2, attn_impl="flash_pallas")
+    if arch == HYBRID_ARCH:
+        return base.scaled(num_layers=2 * base.hybrid_attn_every)
+    return base
+
+
+def _expected_launches(cfg) -> dict:
+    if cfg.family == "moe":
+        return {"gmm": 3 * cfg.num_layers, "flash_attention": cfg.num_layers}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ssd_scan": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers}
+
+
 def llm_phase(card: str) -> dict:
-    """Full width cut to 4 layers, batch 1, 64 tokens: the card (kernel)
-    against the port's CPU forward (plain version) on the same params."""
+    """Full width, cut in depth (``_cut_config``): the card's logits (the
+    kernels) against the port's CPU forward (the plain versions) on the same
+    params. For the MoE cut the CPU run replays the card's expert choices
+    (``RouteReplay``) and reports how many it would have made the same. bf16
+    holds ``LLM_TOL`` or the cut's own ``LLM_BF16_TOL``; for the dense, ssm
+    and hybrid cuts it also reports the CPU's own bf16 distance from its fp32
+    logits."""
     out = {}
-    for compute in ("float32", "bfloat16"):
-        cfg = configs.get(SERVE_ARCH).scaled(num_layers=4, attn_impl="flash_pallas",
-                                             compute_dtype=compute)
-        tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                                                    size=(1, 64)))
-        params = transformer.init(1, cfg, device=DEV)
-        before = flash_attention.LAUNCHES
-        with torch.no_grad():
-            got = transformer.forward(params, {"tokens": tokens.to(DEV)}, cfg)
-            torch.cuda.synchronize()
-            launches = flash_attention.LAUNCHES - before
-            want = transformer.forward(tree_map(lambda t: t.cpu(), params), {"tokens": tokens}, cfg)
-        err = _rel(got.cpu(), want)
-        if not (torch.isfinite(got).all() and got.shape == (1, 64, cfg.vocab_size)):
-            raise AssertionError(f"llm: bad logits {tuple(got.shape)}")
-        if not err <= LLM_TOL[compute] or launches != cfg.num_layers:
-            raise AssertionError(f"llm {compute}: card vs CPU logits {err} of max |logit| "
-                                 f"(tolerance {LLM_TOL[compute]}), {launches} launches")
-        print(f"llm: {SERVE_ARCH} full width cut to 4 layers, 64 tokens, {compute} compute: card "
-              f"vs CPU logits {err:.3g} of max |logit| (tolerance {LLM_TOL[compute]}), "
-              f"{launches} flash_attention launches  [{card}]")
-        out[compute] = {"rel_err": err, "launches": launches}
-        del params
+    for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH, HYBRID_ARCH):
+        batch, length = 1, 64
+        for compute in ("float32", "bfloat16"):  # fp32 first: bf16 is reported against it
+            cfg = _cut_config(arch, compute)
+            tokens = torch.from_numpy(np.random.default_rng(3).integers(
+                0, cfg.vocab_size, size=(batch, length)))
+            params = api.init(1, cfg, device=DEV)
+            before = launch_counts()
+            with torch.no_grad(), RouteRecorder() as card_routes:
+                got, _ = api.forward(params, {"tokens": tokens.to(DEV)}, cfg)
+                torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+            cpu_params = tree_map(lambda t: t.cpu(), params)
+            del params
+            with torch.no_grad(), RouteReplay(t.cpu() for t in card_routes.top_e) as rep:
+                want, _ = api.forward(cpu_params, {"tokens": tokens}, cfg)
+            del cpu_params
+            got = got.cpu()
+            if not (torch.isfinite(got).all() and got.shape == (batch, length, cfg.vocab_size)):
+                raise AssertionError(f"llm {arch}: bad logits {tuple(got.shape)}")
+            err = _rel(got, want)
+            floor = None
+            if compute == "float32":
+                want32 = want
+            elif not rep.total:  # an MoE's fp32 and bf16 runs choose other experts
+                floor = _rel(want, want32)
+            tol = LLM_TOL[compute] if compute == "float32" else LLM_BF16_TOL.get(
+                arch, LLM_TOL[compute])
+            if not err <= tol or launches != _expected_launches(cfg):
+                raise AssertionError(f"llm {arch} {compute}: card vs CPU logits {err} of max "
+                                     f"|logit| (tolerance {tol}), launches {launches}, "
+                                     f"expected {_expected_launches(cfg)}")
+            routed = (f", the card's expert choices replayed on the CPU (its own top-k agrees "
+                      f"on {rep.agreement:.3f})" if rep.total else "")
+            floor_txt = "" if floor is None else f"; the CPU's own bf16 vs fp32 {floor:.3g}"
+            print(f"llm: {arch} full width, {cfg.num_layers} layers, {batch} x {length} tokens, "
+                  f"{compute} compute: card vs CPU logits {err:.3g} of max |logit| (tolerance "
+                  f"{tol:.3g}{floor_txt}){routed}, launches {launches}  [{card}]")
+            out[f"{arch}/{compute}"] = {"rel_err": err, "tol": tol, "bf16_floor": floor,
+                                        "launches": launches,
+                                        "route_agreement": rep.agreement if rep.total else None}
+            del got
+            torch.cuda.empty_cache()
     return out
 
 
@@ -675,7 +1242,7 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    libs = kbuild.build(ibn_conv.SOURCE, flash_attention.SOURCE)
+    libs = kbuild.build(*(mod.SOURCE for mod in KERNELS.values()))
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]")
     for log in kbuild.LOGS.values():
@@ -694,7 +1261,14 @@ def main() -> int:
     search = timed("search", search_phase)
     prof = timed("profile", profile_phase)
     attn = timed("attention", attention_phase)
+    ssd = timed("ssd", ssd_phase)
+    gmm_res = timed("gmm", gmm_phase)
     serve = timed("serve", serve_phase)
+    torch.cuda.empty_cache()
+    serve_ssm = timed("serve_ssm", serve_ssm_phase)
+    torch.cuda.empty_cache()
+    serve_moe = timed("serve_moe", serve_moe_phase)
+    torch.cuda.empty_cache()
     llm = timed("llm", llm_phase)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
@@ -726,12 +1300,42 @@ def main() -> int:
         "bound_by": attn["main"]["bound_by"],
         "library_ms": attn["main"]["library_ms"],
         "launches_per_prefill": serve["prefill_launches"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:88",
+        "launches": serve_ssm["path_launches"]["ssd_scan"],
+        "max_abs_err": ssd["main"]["max_abs_err"],
+        "ms": ssd["main"]["ms"],
+        "plain_ms": ssd["main"]["plain_ms"],
+        "bound_ms": ssd["main"]["bound_ms"],
+        "bound_by": ssd["main"]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the SSD chunk scan",
+        "launches_per_prefill": serve_ssm["prefill_launches"],
+    }, {
+        "name": "gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm.py:44",
+        "launches": serve_moe["path_launches"]["gmm"],
+        "max_abs_err": gmm_res["main"]["gate/up"]["max_abs_err"],
+        "ms": gmm_res["main"]["gate/up"]["ms"],
+        "plain_ms": gmm_res["main"]["gate/up"]["plain_ms"],
+        "bound_ms": gmm_res["main"]["gate/up"]["bound_ms"],
+        "bound_by": gmm_res["main"]["gate/up"]["bound_by"],
+        "library_ms": gmm_res["main"]["gate/up"]["library_ms"],
+        "shape": "gate/up prefill product (E, C, D, F) = "
+                 f"{gmm_res['main']['gate/up']['shape']}, bf16",
+        "launches_per_prefill": serve_moe["prefill_launches"]["gmm"],
     }]}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernel": kern, "model": model, "search": search,
-             "profile": prof, "attention": attn, "serve": serve, "llm": llm,
+             "profile": prof, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
+             "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm,
              "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

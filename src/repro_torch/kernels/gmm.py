@@ -1,0 +1,135 @@
+"""The grouped (per-expert) matmul on a hand-written CUDA kernel for Hopper
+(sm_90a).
+
+Replaces ``repro/kernels/gmm.py::gmm`` (the Pallas TPU kernel
+``_gmm_kernel``): ``y[e] = x[e] @ w[e]``, x (E, C, D), w (E, D, F), fp32 or
+bf16 (the same type), fp32 accumulation, y (E, C, F) in x's type. It is
+what the MoE layer's three expert products compute
+(``models.moe.expert_ffn``). One launch covers every expert. The kernel
+source is ``csrc/gmm.cu``; its header says what bounds it on the card and
+how it is laid out (bf16 on the tensor cores with ``mma.sync``, fp32 as
+fp32 FMAs).
+
+fp32 operands are read through their strides (any strides), without a
+copy. The bf16 body copies its tiles in 16-byte chunks: it takes operands
+with unit stride along the last axis, that axis a multiple of 8, the other
+strides multiples of 8 and a 16-byte-aligned start, which is what the MoE
+layer passes. ``launch`` copies any other bf16 operand into a zero-padded
+contiguous one first (the zeros add nothing to the products) and returns
+the unpadded columns.
+
+Build: at first use, ``kernels.build`` compiles the source into a shared
+library with a plain C interface under ``build/kernels/``, loaded with
+``ctypes``. Nothing is built when the module is imported.
+
+On a CPU tensor ``gmm`` takes the plain version (``ref.gmm_ref``); a CUDA
+tensor launches the kernel or raises. There is no gradient: the TPU kernel
+has no VJP, so backward raises. ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm.cu"
+
+#: kernel launches so far (the plain version is not counted). Reset it to 0
+#: to count one run.
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build() -> Path:
+    """Compile the kernel library if this source has not been built yet;
+    returns its path."""
+    return kbuild.build(SOURCE)[0]
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
+        lib.gmm_launch.restype = i32
+        _lib = lib
+    return _lib
+
+
+def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel into a new contiguous (E, C, F) tensor.
+    Raises on anything the kernel does not take."""
+    global LAUNCHES
+    kbuild.require_sm90(x, "gmm")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"gmm takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"x (E,C,D) and w (E,D,F) expected; got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    e, c, d = x.shape
+    f = w.shape[2]
+    if min(e, c, d, f) == 0:
+        raise ValueError(f"empty product {tuple(x.shape)} @ {tuple(w.shape)}")
+    if e > 65535:
+        raise ValueError(f"gmm takes at most 65535 experts, got {e}")
+    if w.device != x.device or w.dtype != x.dtype:
+        raise ValueError(f"w must match x ({x.dtype} on {x.device}); "
+                         f"got {w.dtype} on {w.device}")
+    fp = f
+    if x.dtype == torch.bfloat16 and not (_fits_bf16_body(x) and _fits_bf16_body(w)):
+        d, fp = d + -d % 8, f + -f % 8
+        x, w = _padded(x, c, d), _padded(w, d, fp)
+    y = torch.empty((e, c, fp), device=x.device, dtype=x.dtype)
+    strides = (ctypes.c_longlong * 6)(*x.stride(), *w.stride())
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.gmm_launch(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                             e, c, d, fp, strides,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return y if fp == f else y[..., :f].contiguous()
+
+
+def _fits_bf16_body(t: torch.Tensor) -> bool:
+    """Whether the bf16 body reads ``t`` (3-d) as it is: unit stride along
+    the last axis, that axis a multiple of 8, the other strides multiples of
+    8 and the start 16-byte aligned."""
+    return (t.stride(2) == 1 and t.shape[2] % 8 == 0 and t.stride(0) % 8 == 0
+            and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """A new contiguous (E, rows, cols) copy of ``t`` with zeros past its
+    edges (a fresh allocation, so its start is 16-byte aligned)."""
+    out = t.new_zeros((t.shape[0], rows, cols))
+    out[:, :t.shape[1], :t.shape[2]] = t
+    return out
+
+
+class Gmm(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) with no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        if x.device.type == "cpu":
+            return ref.gmm_ref(x, w)
+        return launch(x, w)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("gmm has no gradient: the TPU kernel it ports has no VJP")
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype."""
+    return Gmm.apply(x, w)

@@ -11,7 +11,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import ibn_conv
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def ibn_pointwise(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -34,3 +36,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                  causal=causal)
     return out.transpose(1, 2)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 SSD chunk scan: x (B,S,H,P), dt (B,S,H) fp32, A (H,),
+    B/C (B,S,G,N) -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) fp32),
+    in chunks of ``min(chunk, S)`` positions as ``models.ssm`` takes them."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The grouped matmul ``y[e] = x[e] @ w[e]``: x (E,C,D), w (E,D,F) ->
+    (E,C,F) in x's dtype, fp32 accumulation."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gmm runs on cpu or cuda, not {x.device}")
+    return _gmm.gmm(x, w)

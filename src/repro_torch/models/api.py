@@ -1,33 +1,27 @@
 """Family dispatcher. Counterpart of ``repro/models/api.py``.
 
-The dense transformer families (dense, vlm, audio) are ported; the moe, ssm
-and hybrid families, and the losses, come with later slices of the port and
-raise ``NotImplementedError`` until then.
+Every family is ported: dense, vlm and audio (``transformer``), moe
+(``moe``), ssm (``ssm``) and hybrid (``hybrid``). The losses come with the
+training slice of the port.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 
 _FAMS = {
     "dense": transformer,
     "vlm": transformer,
     "audio": transformer,
-}
-_LATER = {
-    "moe": "models/moe.py with the gmm kernel",
-    "ssm": "models/ssm.py with the ssd_scan kernel",
-    "hybrid": "models/hybrid.py with the ssd_scan kernel",
+    "moe": moe,
+    "ssm": ssm,
+    "hybrid": hybrid,
 }
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"the {cfg.family} family comes with a later slice of the port "
-            f"({_LATER[cfg.family]}; ROADMAP Queue 1, item 8)")
     return _FAMS[cfg.family]
 
 
@@ -36,8 +30,12 @@ def init(seed: int, cfg: ModelConfig, device="cuda"):
 
 
 def forward(params, batch: dict, cfg: ModelConfig, pc=None, *, remat: str = "none"):
-    """Returns (logits, aux_loss_scalar)."""
-    logits = module_for(cfg).forward(params, batch, cfg, pc, remat=remat)
+    """Returns (logits, aux_loss_scalar): the moe family's router loss,
+    zeros for the others."""
+    mod = module_for(cfg)
+    if cfg.family == "moe":
+        return mod.forward(params, batch, cfg, pc, remat=remat)
+    logits = mod.forward(params, batch, cfg, pc, remat=remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

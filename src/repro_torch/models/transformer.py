@@ -32,16 +32,9 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> dict:
     def gen(*names):
         return fold_seed(seed, *names, device=device)
 
-    lead = (cfg.num_layers,)
-    layers = {
-        "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
-        "attn": L.init_attention(gen("layers", "attn"), cfg, lead=lead, device=device),
-        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
-        "mlp": L.init_mlp(gen("layers", "mlp"), cfg, lead=lead, device=device),
-    }
     params = {
         "embed": L.init_embedding(gen("embed"), cfg, device=device),
-        "layers": layers,
+        "layers": init_block(seed, cfg, "layers", lead=(cfg.num_layers,), device=device),
         "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device=device),
     }
     if cfg.frontend == "vision_patches":
@@ -51,6 +44,20 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> dict:
         params["in_proj"] = L.dense_init(
             gen("in_proj"), (cfg.frontend_dim, cfg.d_model), dtype, device=device)
     return params
+
+
+def init_block(seed: int, cfg: ModelConfig, *names: str, lead=(), device="cuda") -> dict:
+    """One block's parameters (a ``lead``-stacked one for a stack of
+    blocks), drawn from the generators named ``names`` + "attn" / "mlp"."""
+    dtype = dtype_of(cfg.param_dtype)
+    return {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
+        "attn": L.init_attention(fold_seed(seed, *names, "attn", device=device), cfg,
+                                 lead=lead, device=device),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, lead=lead, device=device),
+        "mlp": L.init_mlp(fold_seed(seed, *names, "mlp", device=device), cfg, lead=lead,
+                          device=device),
+    }
 
 
 def params_from_reference(np_params: dict, device="cuda") -> dict:

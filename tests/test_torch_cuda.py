@@ -1,6 +1,8 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
-ibn_pointwise forward and backward, flash_attention forward, and the dense
-transformer's prefill through flash_attention. Every test here carries the ``cuda`` marker
+ibn_pointwise forward and backward, flash_attention, ssd_scan and gmm
+forward, and the prefills of the dense transformer (flash_attention), the
+Mamba2 LM (ssd_scan) and the MoE transformer (gmm) against the port's CPU
+forward. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -15,9 +17,12 @@ from repro_torch.common import tree_map  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ibn_conv, ops  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref, ibn_pointwise_ref  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
+                                     ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
+from repro_torch.models import api, transformer  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SHAPES = [
@@ -160,3 +165,164 @@ def test_prefill_on_card_launches_the_kernel_once_per_layer():
                                    cfg)
     assert torch.max(torch.abs(got.cpu() - want)).item() / want.abs().max().item() < 1e-4
 
+
+
+# ssd_scan: tests/test_kernels.py's shapes, a ragged tail with G > 1, a chunk
+# longer than S, mamba2-370m's widths at a ragged S, and zamba2-7b's;
+# (b, s, h, p, g, n, chunk)
+SSD_SHAPES = [
+    (2, 64, 4, 16, 1, 32, 16), (1, 128, 4, 8, 2, 16, 32), (2, 96, 2, 32, 1, 64, 32),
+    (1, 48, 8, 16, 4, 8, 48), (1, 37, 4, 16, 2, 16, 16), (2, 20, 2, 8, 1, 8, 64),
+    (2, 1000, 32, 64, 1, 128, 256), (1, 300, 112, 64, 1, 64, 256),
+]
+# relative to max |plain value|: fp32, the chunk's cumsum is a scan in
+# another order and the products sum in another order, which moves
+# exp(cs_i - cs_j) by ~1e-5 where |cs| reaches hundreds; bf16 rounds y to 8
+# bits of mantissa
+SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, seed=6):
+    """x, dt (softplus of a normal), A (-exp of a normal) and B, C as views
+    into one (B, S, 2GN) tensor, as the model passes them."""
+    rng = np.random.default_rng(seed)
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).cuda().to(td)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)).cuda()
+    A = torch.from_numpy((-np.exp(rng.normal(size=(h,)))).astype(np.float32)).cuda()
+    bc = torch.from_numpy(rng.normal(size=(b, s, 2 * g * n)).astype(np.float32)).cuda().to(td)
+    return x, dt, A, bc[..., :g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n)
+
+
+def _rel_to_max(got, want):
+    return (torch.max(torch.abs(got.float() - want.float())) / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+def test_ssd_scan_matches_plain_version_on_card(b, s, h, p, g, n, chunk, dtype):
+    _need_sm90()
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype)
+    assert not Bm.is_contiguous()  # the kernel reads the views' strides
+    before = tssd.LAUNCHES
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape and st.shape == (b, h, p, n)
+    want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert _rel_to_max(y, want_y) < SSD_TOL[dtype]
+    assert _rel_to_max(st, want_st) < SSD_TOL["float32"]  # the state is fp32 in both
+
+
+@pytest.mark.cuda
+def test_ssd_scan_plain_version_matches_sequential_oracle_on_card():
+    _need_sm90()
+    for shape in SSD_SHAPES[:6]:
+        x, dt, A, Bm, Cm = _ssd_inputs(*shape[:6], "float32")
+        y, st = ssd_chunked(x, dt, A, Bm, Cm, shape[6])
+        ry, rst = ssd_scan_ref(x, dt, A, Bm, Cm, shape[6])
+        assert torch.max(torch.abs(y - ry)).item() < 2e-3  # tests/test_kernels.py's
+        assert torch.max(torch.abs(st - rst)).item() < 2e-3
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_cannot_run(monkeypatch):
+    _need_sm90()
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 16, 2, 8, 1, 8, "float32")
+    with pytest.raises(ValueError, match="head_dim"):
+        tssd.launch(torch.cat([x] * 9, dim=-1), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        tssd.launch(x, dt.bfloat16(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="unit stride"):
+        tssd.launch(x, dt, A, Bm.repeat_interleave(2, dim=-1)[..., ::2], Cm, chunk=8)
+    monkeypatch.setitem(kbuild.DEVICES, x.device.index, ((8, 0), 132))
+    with pytest.raises(RuntimeError, match="capability 8.0"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
+
+
+# gmm: tests/test_kernels.py's shapes, ragged edges, and qwen2-moe-a2.7b's
+# three products at a reduced expert count; (e, c, d, f)
+GMM_SHAPES = [
+    (4, 64, 32, 48), (2, 100, 70, 30), (8, 128, 256, 128), (1, 8, 8, 8), (3, 129, 33, 257),
+    (4, 688, 2048, 1408), (4, 688, 1408, 2048), (60, 32, 2048, 1408),
+]
+# relative to max |plain value|: fp32 sums in another order; bf16 rounds the
+# output to 8 bits of mantissa
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_gmm_matches_plain_version_on_card(e, c, d, f, dtype):
+    _need_sm90()
+    rng = np.random.default_rng(7)
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(e, c, d)).astype(np.float32)).cuda().to(td)
+    w = torch.from_numpy(rng.normal(size=(e, d, f)).astype(np.float32)).cuda().to(td)
+    before = tgmm.LAUNCHES
+    got = ops.gmm(x, w)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES == before + 1
+    assert got.dtype == td and got.shape == (e, c, f)
+    assert _rel_to_max(got, gmm_ref(x, w)) < GMM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_takes_strided_views_and_refuses_what_it_cannot_run(dtype, monkeypatch):
+    _need_sm90()
+    rng = np.random.default_rng(8)
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(3, 90, 40)).astype(np.float32)).cuda().to(td)
+    w = torch.from_numpy(rng.normal(size=(3, 70, 40)).astype(np.float32)).cuda().to(td)
+    # (3, 45, 40) @ (3, 40, 70): fp32 reads the views, bf16 copies them into
+    # zero-padded contiguous operands (F 70 -> 72); one launch each
+    xs, ws = x[:, ::2], w.transpose(1, 2)
+    before = tgmm.LAUNCHES
+    got = ops.gmm(xs, ws)
+    assert got.shape == (3, 45, 70) and got.is_contiguous()
+    assert _rel_to_max(got, gmm_ref(xs, ws)) < GMM_TOL[dtype]
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # unit stride along C, not D
+    assert _rel_to_max(ops.gmm(xt, ws), gmm_ref(xt, ws)) < GMM_TOL[dtype]
+    assert tgmm.LAUNCHES == before + 2
+    with pytest.raises(ValueError, match="must match x"):
+        tgmm.launch(x, ws.float() if dtype == "bfloat16" else ws.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgmm.launch(x.half(), ws.half())
+    monkeypatch.setitem(kbuild.DEVICES, x.device.index, ((8, 0), 132))
+    with pytest.raises(RuntimeError, match="capability 8.0"):
+        ops.gmm(x, ws)
+
+
+def _family_cfg(family):
+    common = dict(name=f"t-{family}", num_layers=3, d_model=128, vocab_size=1000,
+                  compute_dtype="float32")
+    if family == "ssm":
+        return ModelConfig(family="ssm", num_heads=1, num_kv_heads=1, d_ff=0, ssm_state=64,
+                           ssm_head_dim=32, ssm_chunk=32, **common)
+    return ModelConfig(family="moe", num_heads=4, num_kv_heads=4, head_dim=32, d_ff=96,
+                       moe_d_ff=96, num_experts=6, num_experts_per_tok=2,
+                       num_shared_experts=1, attn_impl="flash_pallas", **common)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kernel,per_layer", [("ssm", tssd, 1), ("moe", tgmm, 3)])
+def test_prefill_on_card_launches_its_kernel_per_layer(family, kernel, per_layer):
+    """The Mamba2 LM runs one ssd_scan per layer, the MoE transformer three
+    gmm per layer; fp32 logits on the card against the port's CPU forward."""
+    _need_sm90()
+    cfg = _family_cfg(family)
+    params = api.init(0, cfg, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, 1000, size=(2, 77))).cuda()
+    before = kernel.LAUNCHES
+    with torch.no_grad():
+        got, aux = api.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == before + per_layer * cfg.num_layers
+        want, want_aux = api.forward(tree_map(lambda t: t.cpu(), params), {"tokens": toks.cpu()},
+                                     cfg)
+    assert torch.max(torch.abs(got.cpu() - want)).item() / want.abs().max().item() < 1e-4
+    assert abs(aux.item() - want_aux.item()) < 1e-4

@@ -1,0 +1,242 @@
+"""The port's SSD chunk scan and Mamba2 LM against the JAX reference on the
+CPU: the scan's plain version against the Pallas kernel (interpret mode,
+as tests/test_kernels.py runs it), the sequential oracle and the model's
+chunked path; then ``models.ssm`` forward and decode on the same
+parameters. The CUDA kernel itself is tested on the card by
+tests/test_torch_cuda.py.
+
+Config: ``mamba2_370m.SMOKE``. Parameters, tokens and scan inputs come from
+numpy seeds and go to both.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import mamba2_370m as ref_mamba  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan  # noqa: E402
+from repro.models import ssm as RS  # noqa: E402
+from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
+from repro_torch.models import api, ssm as TS  # noqa: E402
+
+# the plain scan against the Pallas kernel and the sequential oracle:
+# tests/test_kernels.py's tolerance (fp32, the chunked and sequential forms
+# sum in another order)
+SCAN_TOL = 2e-3
+# against the reference's own chunked path, the same algorithm in fp32:
+# relative to max |y|
+CHUNKED_TOL = 1e-5
+# logits relative to max |reference logit|. fp32: sums in another order.
+# bf16: the two frameworks round at other places (XLA keeps fused chains in
+# fp32). The port's bf16 logits measure 2.41e-2 from the reference's here
+# (2.63e-2 for the hybrid), about as far as the reference's own bf16 logits
+# sit from its fp32 ones (2.39e-2, 2.83e-2), so no limit below that gap
+# holds; a wrong scan, state or position moves logits by O(1)
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+DECODE_TOL = 2e-3  # decode steps, fp32 compute, relative to max |logit|
+
+# tests/test_kernels.py's (b, s, h, p, g, n, chunk), plus a ragged tail
+# with G > 1 and a chunk longer than S
+SCAN_SHAPES = [
+    (2, 64, 4, 16, 1, 32, 16), (1, 128, 4, 8, 2, 16, 32), (2, 96, 2, 32, 1, 64, 32),
+    (1, 48, 8, 16, 4, 8, 48), (1, 37, 4, 16, 2, 16, 16), (2, 20, 2, 8, 1, 8, 64),
+]
+B, S, STEPS = 2, 12, 6
+
+
+def scan_inputs(b, s, h, p, g, n, seed=0):
+    """x, dt (softplus of a normal), A (-exp of a normal), B, C as numpy
+    fp32, as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(h,)))).astype(np.float32)
+    Bm = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    Cm = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES)
+def test_plain_scan_matches_pallas_kernel_and_sequential_oracle(b, s, h, p, g, n, chunk):
+    inputs = scan_inputs(b, s, h, p, g, n)
+    before = tssd.LAUNCHES
+    y, st = ops.ssd_scan(*_t(*inputs), chunk=chunk)  # the plain version on the CPU
+    assert tssd.LAUNCHES == before
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n) and st.dtype == torch.float32
+    jy, jst = pallas_ssd_scan(*map(jnp.asarray, inputs), chunk=chunk, interpret=True)
+    ry, rst = jref.ssd_scan_ref(*map(jnp.asarray, inputs), chunk)
+    for want_y, want_st in ((jy, jst), (ry, rst)):
+        assert np.max(np.abs(y.numpy() - np.asarray(want_y))) < SCAN_TOL
+        assert np.max(np.abs(st.numpy() - np.asarray(want_st))) < SCAN_TOL
+    # the port's sequential oracle is the reference's, step for step
+    ty, tst = ref.ssd_scan_ref(*_t(*inputs), chunk)
+    assert np.max(np.abs(ty.numpy() - np.asarray(ry))) < CHUNKED_TOL * np.abs(ry).max()
+    assert np.max(np.abs(tst.numpy() - np.asarray(rst))) < CHUNKED_TOL * np.abs(rst).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES)
+def test_chunked_scan_matches_model_chunked_path(b, s, h, p, g, n, chunk, dtype):
+    """ref.ssd_chunked against repro.models.ssm.ssd_chunked: the same
+    chunking (min(chunk, S), zero-padded tail), x, B and C in ``dtype``."""
+    x, dt, A, Bm, Cm = scan_inputs(b, s, h, p, g, n, seed=1)
+    jd = jnp.dtype(dtype)
+    jy, jst = RS.ssd_chunked(jnp.asarray(x, jd), jnp.asarray(dt), jnp.asarray(A),
+                             jnp.asarray(Bm, jd), jnp.asarray(Cm, jd), chunk)
+    td = getattr(torch, dtype)
+    ty, tst = ref.ssd_chunked(torch.from_numpy(x).to(td), torch.from_numpy(dt),
+                              torch.from_numpy(A), torch.from_numpy(Bm).to(td),
+                              torch.from_numpy(Cm).to(td), chunk)
+    assert ty.dtype == td
+    jy = np.asarray(jy, np.float32)
+    tol_y = CHUNKED_TOL if dtype == "float32" else 2 ** -8  # one bf16 rounding of y
+    assert np.max(np.abs(ty.float().numpy() - jy)) <= tol_y * np.abs(jy).max()
+    assert np.max(np.abs(tst.numpy() - np.asarray(jst))) <= CHUNKED_TOL * np.abs(jst).max()
+
+
+def test_segsum_masks_above_the_diagonal_before_the_exp():
+    x = torch.tensor([[-1.0, -2.0, -3.0]])
+    out = ref.segsum(x)
+    assert torch.equal(torch.isinf(out[0]), torch.ones(3, 3, dtype=torch.bool).triu(1))
+    assert torch.allclose(out[0].tril(), torch.tensor([[0.0, 0, 0], [-2, 0, 0], [-5, -3, 0]]))
+    assert torch.isfinite(torch.exp(out)).all()
+
+
+def test_scan_has_no_gradient():
+    x, dt, A, Bm, Cm = _t(*scan_inputs(1, 8, 2, 4, 1, 4))
+    x.requires_grad_(True)
+    y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=4)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        y.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 LM on the same parameters
+# ---------------------------------------------------------------------------
+
+
+def _port(cfg, **kw) -> ModelConfig:
+    return ModelConfig(**dataclasses.asdict(dataclasses.replace(cfg, **kw)))
+
+
+def draw_params(cfg, module, seed):
+    """Numpy parameters in ``module``'s reference tree, drawn as its init
+    draws them: unit-fan-in normals for the weights, 1 + 0.1·normal for the
+    norm scales and D, log U(1, 16) for A_log, the inverse softplus of a
+    log-uniform [1e-3, 0.1] for dt_bias, 0.1·normal for the conv biases."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), cfg))
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name in ("scale", "D"):
+            return (1.0 + 0.1 * rng.normal(size=leaf.shape)).astype(np.float32)
+        if name == "A_log":
+            return np.log(rng.uniform(1.0, 16.0, size=leaf.shape)).astype(np.float32)
+        if name == "dt_bias":
+            dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), size=leaf.shape))
+            return (dt0 + np.log(-np.expm1(-dt0))).astype(np.float32)
+        if name in ("conv_x_b", "conv_bc_b"):
+            return (0.1 * rng.normal(size=leaf.shape)).astype(np.float32)
+        return (rng.normal(size=leaf.shape) / np.sqrt(leaf.shape[-2])).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def tokens(vocab, n, seed=7):
+    return np.random.default_rng(seed).integers(0, vocab, size=(B, n)).astype(np.int32)
+
+
+def rel(got, want):
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+def reference_decode(module, params, toks, cfg, max_len):
+    """The reference's decode over ``toks`` (B, n) one token at a time from
+    a zero cache at index 0; each step's logits (n, B, V)."""
+    step = jax.jit(lambda p, c, t, i: module.decode_step(p, c, t, i, cfg))
+    cache = module.init_cache(cfg, toks.shape[0], max_len)
+    out = []
+    for i in range(toks.shape[1]):
+        logits, cache = step(params, cache, jnp.asarray(toks[:, i:i + 1]), i)
+        out.append(np.asarray(logits[:, 0], np.float32))
+    return out
+
+
+def port_decode(port_module, params, toks, cfg, max_len):
+    cache = api.init_cache(cfg, toks.shape[0], max_len, device="cpu")
+    out = []
+    for i in range(toks.shape[1]):
+        logits, cache = api.decode_step(params, cache, torch.from_numpy(toks[:, i:i + 1]), i,
+                                        cfg)
+        assert logits.shape == (toks.shape[0], 1, cfg.vocab_size)
+        out.append(logits[:, 0].numpy())
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _params():
+    return draw_params(ref_mamba.SMOKE, RS, 0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_forward_matches_reference(compute_dtype):
+    cfg = dataclasses.replace(ref_mamba.SMOKE, compute_dtype=compute_dtype)
+    toks = tokens(cfg.vocab_size, 37)  # three chunks of 16, the last ragged
+    want = np.asarray(jax.jit(lambda p, t: RS.forward(p, {"tokens": t}, cfg))(
+        _params(), jnp.asarray(toks)), np.float32)
+    params = TS.params_from_reference(_params(), "cpu")
+    logits, aux = api.forward(params, {"tokens": torch.from_numpy(toks)}, _port(cfg))
+    assert logits.shape == want.shape and logits.dtype == torch.float32
+    assert float(aux) == 0.0
+    assert rel(logits.numpy(), want) < LOGIT_TOL[compute_dtype]
+
+
+def test_decode_steps_match_reference_and_forward():
+    """STEPS decode steps from a zero cache against the reference's, fp32;
+    the last one also against the port's own forward over those tokens."""
+    cfg = dataclasses.replace(ref_mamba.SMOKE, compute_dtype="float32")
+    toks = tokens(cfg.vocab_size, STEPS, seed=8)
+    want = reference_decode(RS, _params(), toks, cfg, 0)
+    params = TS.params_from_reference(_params(), "cpu")
+    got = port_decode(TS, params, toks, _port(cfg), 0)
+    for t in range(STEPS):
+        assert rel(got[t], want[t]) < DECODE_TOL, f"step {t}"
+    full, _ = api.forward(params, {"tokens": torch.from_numpy(toks)}, _port(cfg))
+    assert rel(got[-1], full[:, -1].numpy()) < DECODE_TOL
+
+
+def _shapes(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _shapes(tree[key], f"{path}/{key}").items()}
+    return {path: tuple(tree.shape)}
+
+
+def test_init_shapes_and_statistics():
+    cfg = _port(ref_mamba.SMOKE)
+    ours = api.init(0, cfg, device="cpu")
+    assert _shapes(ours) == _shapes(_params())
+    layers = ours["layers"]
+    softplus_bias = torch.nn.functional.softplus(layers["dt_bias"])
+    assert softplus_bias.min() >= 1e-3 * 0.999 and softplus_bias.max() <= 0.1 * 1.001
+    a = torch.exp(layers["A_log"])
+    assert a.min() >= 1.0 and a.max() <= 16.0
+    assert abs(layers["wx"].std().item() * np.sqrt(cfg.d_model) - 1) < 0.05
+    assert not torch.equal(layers["wx"][0], layers["wx"][1])
+    assert torch.equal(api.init(0, cfg, device="cpu")["layers"]["wo"], layers["wo"])
+    cache = api.init_cache(cfg, 3, 0, device="cpu")
+    assert cache["state"].shape == (cfg.num_layers, 3, cfg.ssm_nheads, cfg.ssm_head_dim,
+                                    cfg.ssm_state)
+    assert cache["state"].dtype == torch.float32

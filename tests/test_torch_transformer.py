@@ -251,8 +251,20 @@ def test_init_shapes_and_statistics(name):
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
 def test_later_families_raise(family):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.init(0, ModelConfig(family=family), device="cpu")
+    """The moe, ssm and hybrid families are served now (their parity tests
+    are tests/test_torch_{moe,ssm,hybrid}.py); what they still raise, as the
+    dense family does, is a sharded (pc) or remat forward, which come with
+    the parallel and training slices."""
+    arch = {"moe": "qwen2_moe_a2_7b", "ssm": "mamba2_370m", "hybrid": "zamba2_7b"}[family]
+    cfg = port_configs.smoke(arch)
+    params = api.init(0, cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    logits, aux = api.forward(params, batch, cfg)
+    assert logits.shape == (1, 4, cfg.vocab_size) and aux.shape == ()
+    with pytest.raises(NotImplementedError, match="parallel slice"):
+        api.forward(params, batch, cfg, pc=object())
+    with pytest.raises(NotImplementedError, match="training slice"):
+        api.forward(params, batch, cfg, remat="full")
 
 
 def test_sharded_and_remat_paths_raise():

@@ -17,8 +17,11 @@ import torch  # noqa: E402
 
 import test_torch_attention as ta  # noqa: E402
 import test_torch_convnets as tc  # noqa: E402
+import test_torch_hybrid as th  # noqa: E402
 import test_torch_kernels as tk  # noqa: E402
+import test_torch_moe as tm  # noqa: E402
 import test_torch_search as ts  # noqa: E402
+import test_torch_ssm as tss  # noqa: E402
 import test_torch_transformer as tt  # noqa: E402
 
 
@@ -192,9 +195,139 @@ def transformer_rows():
     return rows
 
 
+def ssd_rows():
+    pallas, seq, chunked = 0.0, 0.0, {"float32": 0.0, "bfloat16": 0.0}
+    for shape in tss.SCAN_SHAPES:
+        inputs = tss.scan_inputs(*shape[:6])
+        y, st = tss.ops.ssd_scan(*tss._t(*inputs), chunk=shape[6])
+        for fn, acc in ((lambda a: tss.pallas_ssd_scan(*a, chunk=shape[6], interpret=True),
+                         "pallas"), (lambda a: tss.jref.ssd_scan_ref(*a, shape[6]), "seq")):
+            wy, wst = fn([jnp.asarray(a) for a in inputs])
+            err = max(float(np.max(np.abs(y.numpy() - np.asarray(wy)))),
+                      float(np.max(np.abs(st.numpy() - np.asarray(wst)))))
+            pallas, seq = (max(pallas, err), seq) if acc == "pallas" else (pallas, max(seq, err))
+        x, dt, A, Bm, Cm = tss.scan_inputs(*shape[:6], seed=1)
+        for dtype in chunked:
+            jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+            jy, _ = tss.RS.ssd_chunked(jnp.asarray(x, jd), jnp.asarray(dt), jnp.asarray(A),
+                                       jnp.asarray(Bm, jd), jnp.asarray(Cm, jd), shape[6])
+            ty, _ = tss.ref.ssd_chunked(*(torch.from_numpy(a).to(td) if a.ndim == 4
+                                          else torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)),
+                                        shape[6])
+            jy = np.asarray(jy, np.float32)
+            chunked[dtype] = max(chunked[dtype], float(np.max(np.abs(ty.float().numpy() - jy))
+                                                       / np.abs(jy).max()))
+    return [("ops.ssd_scan (plain) vs Pallas (interpret), y and state, 6 shapes",
+             "test_plain_scan_matches_pallas_kernel_and_sequential_oracle", tss.SCAN_TOL, pallas),
+            ("ops.ssd_scan (plain) vs repro.kernels.ref.ssd_scan_ref",
+             "test_plain_scan_matches_pallas_kernel_and_sequential_oracle", tss.SCAN_TOL, seq),
+            ("ref.ssd_chunked vs repro.models.ssm.ssd_chunked, fp32, / max |y|",
+             "test_chunked_scan_matches_model_chunked_path", tss.CHUNKED_TOL,
+             chunked["float32"]),
+            ("ref.ssd_chunked vs repro.models.ssm.ssd_chunked, bf16, / max |y|",
+             "test_chunked_scan_matches_model_chunked_path", 2 ** -8, chunked["bfloat16"])]
+
+
+def gmm_rows():
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        err = 0.0
+        for e, c, d, f in tm.GMM_SHAPES:
+            rng = np.random.default_rng(0)
+            x = rng.normal(size=(e, c, d)).astype(np.float32)
+            w = rng.normal(size=(e, d, f)).astype(np.float32)
+            jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+            want = tm.pallas_gmm(jnp.asarray(x, jd), jnp.asarray(w, jd), block_c=32,
+                                 block_f=32, block_d=32, interpret=True)
+            got = tm.ops.gmm(torch.from_numpy(x).to(td), torch.from_numpy(w).to(td))
+            err = max(err, float(np.max(np.abs(got.float().numpy()
+                                               - np.asarray(want, np.float32)))))
+        rows.append((f"ops.gmm (plain) vs Pallas (interpret), 4 shapes, {dtype}",
+                     "test_plain_gmm_matches_pallas_kernel", tm.GMM_TOL[dtype], err))
+    return rows
+
+
+def route_rows():
+    """moe routing on the same fp32 inputs: top-k experts, dispatch
+    destinations and buffers counted as mismatches (the test asserts 0), the
+    weights, aux loss and combine as max |difference|."""
+    rng = np.random.default_rng(2)
+    n, d, cfg = 40, tm.CFG.d_model, tm.CFG
+    x2d = rng.normal(size=(n, d)).astype(np.float32)
+    wr = (rng.normal(size=(d, cfg.num_experts)) / np.sqrt(d)).astype(np.float32)
+    jw, je, jaux = tm.RM.route(jnp.asarray(x2d), jnp.asarray(wr), cfg)
+    tw, te, taux = tm.TM.route(torch.from_numpy(x2d), torch.from_numpy(wr), tss._port(cfg))
+    mismatches, err = int(np.sum(te.numpy() != np.asarray(je))), 0.0
+    for cap, e_start, e_count in ((tm.RM.capacity_for(n, cfg), 0, 6), (6, 0, 6), (4, 2, 3)):
+        jb, jd, jk = tm.RM.dispatch(jnp.asarray(x2d), je, cfg.num_experts, cap, e_start, e_count)
+        tb, tdst, tk_ = tm.TM.dispatch(torch.from_numpy(x2d), te, cfg.num_experts, cap, e_start,
+                                       e_count)
+        mismatches += int(np.sum(tdst.numpy() != np.asarray(jd)))
+        mismatches += int(np.sum(tk_.numpy() != np.asarray(jk)))
+        mismatches += int(np.sum(tb.numpy() != np.asarray(jb)))
+        y = rng.normal(size=tuple(tb.shape)).astype(np.float32)
+        want = tm.RM.combine(jnp.asarray(y), jd, jk, jw, n, cfg.num_experts_per_tok)
+        got = tm.TM.combine(torch.from_numpy(y), tdst, tk_, tw, n, cfg.num_experts_per_tok)
+        err = max(err, float(np.max(np.abs(got.numpy() - np.asarray(want)))))
+    err = max(err, float(np.max(np.abs(tw.numpy() - np.asarray(jw)))),
+              abs(float(taux) - float(jaux)))
+    return [("moe route top_e, dispatch dest/keep/buffers (mismatched elements)",
+             "test_route_dispatch_combine_match_reference", 0, mismatches),
+            ("moe route top_w, aux loss, combine", "test_route_dispatch_combine_match_reference",
+             tm.ROUTE_TOL, err)]
+
+
+def family_rows():
+    """Forward logits / max |logit| (fp32, bf16) and 6 decode steps (fp32)
+    of the ssm, moe and hybrid smoke configs against the reference."""
+    rows = []
+    fams = (("ssm", tss, tss.ref_mamba.SMOKE, tss.RS, tss.TS, 37, 7),
+            ("moe", tm, tm.CFG, tm.RM, tm.TM, 16, 4),
+            ("hybrid", th, th.CFG, th.RH, th.TH, 37, 9))
+    for fam, mod, base, rmod, tmod, n, seed in fams:
+        for dtype in ("float32", "bfloat16"):
+            cfg = tt.dataclasses.replace(base, compute_dtype=dtype)
+            toks = tss.tokens(cfg.vocab_size, n, seed=seed)
+            want = jax.jit(lambda p, t: rmod.forward(p, {"tokens": t}, cfg))(
+                mod._params(), jnp.asarray(toks))
+            want = np.asarray(want[0] if fam == "moe" else want, np.float32)
+            got, _ = tss.api.forward(tmod.params_from_reference(mod._params(), "cpu"),
+                                     {"tokens": torch.from_numpy(toks)}, tss._port(cfg))
+            rows.append((f"{fam} forward logits / max, smoke config, {dtype} compute",
+                         "test_forward_matches_reference" if fam != "moe"
+                         else "test_forward_and_aux_match_reference",
+                         mod.LOGIT_TOL[dtype], float(tss.rel(got.numpy(), want))))
+    for fam, mod, base, rmod, tmod, max_len in (("ssm", tss, tss.ref_mamba.SMOKE, tss.RS,
+                                                 tss.TS, 0),
+                                                ("hybrid", th, th.CFG, th.RH, th.TH, th.MAX)):
+        cfg = tt.dataclasses.replace(base, compute_dtype="float32")
+        toks = tss.tokens(cfg.vocab_size, tss.STEPS, seed=8 if fam == "ssm" else 10)
+        want = tss.reference_decode(rmod, mod._params(), toks, cfg, max_len)
+        got = tss.port_decode(tmod, tmod.params_from_reference(mod._params(), "cpu"), toks,
+                              tss._port(cfg), max_len)
+        rows.append((f"{fam} decode_step logits / max, 6 steps from a zero cache, fp32",
+                     "test_decode_steps_match_reference_and_forward", tss.DECODE_TOL,
+                     max(float(tss.rel(g, w)) for g, w in zip(got, want))))
+    cfg = tt.dataclasses.replace(tm.CFG, compute_dtype="float32")
+    toks = tss.tokens(cfg.vocab_size, tm.P + tm.STEPS, seed=0)
+    step = jax.jit(lambda p, c, t, i: tm.RM.decode_step(p, c, t, i, cfg))
+    jcache = tm.RM.init_cache(cfg, tm.B, tm.MAX)
+    params = tm.TM.params_from_reference(tm._params(), "cpu")
+    tcache = tss.api.init_cache(tss._port(cfg), tm.B, tm.MAX, device="cpu")
+    err = 0.0
+    for t0, t1 in [(0, tm.P)] + [(tm.P + i, tm.P + i + 1) for i in range(tm.STEPS)]:
+        jl, jcache = step(tm._params(), jcache, jnp.asarray(toks[:, t0:t1]), t0)
+        tl, tcache = tss.api.decode_step(params, tcache, torch.from_numpy(toks[:, t0:t1]), t0,
+                                         tss._port(cfg))
+        err = max(err, float(tss.rel(tl.numpy(), np.asarray(jl))))
+    rows.append(("moe decode_step logits / max, prompt fill + 6 steps, fp32",
+                 "test_decode_steps_match_reference", tm.DECODE_TOL, err))
+    return rows
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
-            + transformer_rows())
+            + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
