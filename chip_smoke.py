@@ -25,9 +25,12 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                wall time, device time, and the kernel's share of it;
 6. attention — holds ``flash_attention`` against its plain version on the
                card at tests/test_kernels.py's shapes (fp32 and bf16), causal
-               with sq != skv, and the served model's prefill shape (B 8, H 16,
-               KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025); times the
-               kernel, the plain version and ``scaled_dot_product_attention``;
+               with sq != skv, head_dims 80, 112 and 256 with G 1, 2 and 8 at
+               S 1000 and 1025, and the served model's prefill shape (B 8,
+               H 16, KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025);
+               times the kernel, the plain version and
+               ``scaled_dot_product_attention`` there, at S 4096, and at
+               zamba2-7b's, hubert-xlarge's and gemma-2b's heads;
 7. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, and zamba2-7b's H 112 N 64, and the plain version
@@ -56,7 +59,8 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                decode step, 32 greedy steps, decode vs forward at 8 x 256 tokens
                (no capacity drops); times and the profiler's breakdown;
 12. llm       — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
-               whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups), fp32
+               whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups with
+               its shared block on ``flash_attention`` at head_dim 112), fp32
                and bf16: the card's logits (kernels) against the port's CPU
                forward (plain versions), with each kernel's launch count;
 13. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
@@ -116,6 +120,11 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DEV = "cuda"  # every tensor of the attention, serve and llm phases
 # the served model's prefill attention: B, H, KV, S, hd (qwen3-1.7B, 8 x 1024)
 SERVE_ATTN = (8, 16, 8, 1024, 128)
+# the other head_dims of the configs, at their own heads, 8 x 1024: H, KV,
+# hd, causal (zamba2-7b's shared block, hubert-xlarge's bidirectional
+# encoder, gemma-2b)
+OTHER_ATTN = {"zamba2-7b": (32, 32, 112, True), "hubert-xlarge": (16, 16, 80, False),
+              "gemma-2b": (8, 1, 256, True)}
 SERVE_ARCH = "qwen3_1_7b"
 SERVE_BATCH, PROMPT, CACHE_LEN, DECODE_STEPS, INT8_STEPS = 8, 1024, 2048, 32, 4
 # LLM logits relative to max |logit|. fp32: the card and the CPU sum in
@@ -501,28 +510,49 @@ def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool) -> d
 def attention_phase(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(1)
     records = []
-    # tests/test_kernels.py's shapes, then causal with sq != skv
+    # tests/test_kernels.py's shapes, causal with sq != skv, the other
+    # head_dims of the configs (80, 112, 256) with G 1, 2 and 8 at lengths
+    # that are not multiples of the kv tile, one row, and rows shorter than
+    # a tile
     for shape in ((1, 4, 4, 64, 64, 32, True), (2, 4, 2, 64, 64, 32, True),
                   (1, 8, 1, 128, 128, 64, True), (2, 4, 1, 96, 160, 32, False),
                   (1, 2, 2, 200, 200, 16, True), (1, 4, 2, 96, 160, 32, True),
-                  (2, 4, 1, 160, 96, 16, True)):
+                  (2, 4, 1, 160, 96, 16, True), (2, 8, 8, 1000, 1000, 80, True),
+                  (1, 8, 4, 1000, 1025, 112, True), (1, 8, 1, 1025, 1000, 256, True),
+                  (2, 4, 2, 300, 1025, 80, False), (1, 16, 2, 1000, 1000, 112, False),
+                  (1, 2, 2, 130, 70, 256, False), (2, 4, 2, 1, 1, 128, True),
+                  (1, 4, 4, 40, 77, 64, False)):
         for dtype in (torch.float32, torch.bfloat16):
             records.append(check_attention(*shape, dtype, gen, timed=False))
     b, h, kv, s, hd = SERVE_ATTN
     ragged = check_attention(b, h, kv, s + 1, s + 1, hd, True, torch.bfloat16, gen, timed=False)
     main = check_attention(b, h, kv, s, s, hd, True, torch.bfloat16, gen, timed=True)
-    records += [ragged, main]
+    # 4 times longer sequences at a quarter of the batch: each item walks 4 times
+    # as many kv tiles, so its start and end weigh less
+    long = check_attention(b // 4, h, kv, 4 * s, 4 * s, hd, True, torch.bfloat16, gen,
+                           timed=True)
+    others = {name: check_attention(b, oh, okv, s, s, ohd, oc, torch.bfloat16, gen, timed=True)
+              for name, (oh, okv, ohd, oc) in OTHER_ATTN.items()}
+    records += [ragged, main, long, *others.values()]
     worst = max(r["max_abs_err"] / r["tol"] for r in records)
     print(f"attention: {len(records)} checks against the plain version (fp32 and bf16, "
-          f"causal sq != skv, S {s} and {s + 1}); worst error {worst:.3g} of its "
-          f"tolerance  [{card}]")
+          f"hd {sorted({r['shape'][5] for r in records})}, causal sq != skv, S {s} and "
+          f"{s + 1}); worst error {worst:.3g} of its tolerance  [{card}]")
     print(f"attention: B {b} H {h} KV {kv} S {s} hd {hd} bf16 causal: kernel "
           f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, sdpa "
           f"{main['library_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']}; "
           f"bytes {main['bound_bytes_ms']:.4f}, operations {main['bound_ops_ms']:.4f}); "
           f"max |err| {main['max_abs_err']:.3g} (ragged S {s + 1}: "
           f"{ragged['max_abs_err']:.3g}), sdpa vs plain {main['library_err']:.3g}  [{card}]")
-    return {"records": records, "main": main}
+    for name, rec in [("qwen3-1.7B", main), ("qwen3-1.7B at S 4096", long), *others.items()]:
+        flop = rec["bound_ops_ms"] * 1e-3 * PEAK_FLOP_PER_S[torch.bfloat16]
+        print(f"attention: {name} (B, H, KV, Sq, Skv, hd) {rec['shape']} bf16"
+              f"{' causal' if rec['causal'] else ''}: kernel {rec['ms']:.4f} ms "
+              f"({flop / rec['ms'] / 1e9:.1f} TFLOP/s), sdpa {rec['library_ms']:.4f} ms "
+              f"({flop / rec['library_ms'] / 1e9:.1f}), plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max |err| "
+              f"{rec['max_abs_err']:.3g}  [{card}]")
+    return {"records": records, "main": main, "long": long, "others": others}
 
 
 def _device_times(prof, steps_run: int) -> dict:
@@ -1149,22 +1179,26 @@ def serve_moe_phase(card: str) -> dict:
 
 def _cut_config(arch: str, compute: str):
     """The llm phase's cut of ``arch``: qwen3-1.7B at 4 layers, mamba2-370m
-    whole, qwen2-moe-a2.7b at 2 layers (both with flash_pallas), zamba2-7b at
-    2 groups; full width."""
+    whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups (all but
+    mamba2 with flash_pallas; zamba2's shared block at head_dim 112); full
+    width."""
     base = configs.get(arch).scaled(compute_dtype=compute)
     if arch == SERVE_ARCH:
         return base.scaled(num_layers=4, attn_impl="flash_pallas")
     if arch == MOE_ARCH:
         return base.scaled(num_layers=2, attn_impl="flash_pallas")
     if arch == HYBRID_ARCH:
-        return base.scaled(num_layers=2 * base.hybrid_attn_every)
+        return base.scaled(num_layers=2 * base.hybrid_attn_every, attn_impl="flash_pallas")
     return base
 
 
 def _expected_launches(cfg) -> dict:
     if cfg.family == "moe":
         return {"gmm": 3 * cfg.num_layers, "flash_attention": cfg.num_layers}
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":  # one attention launch per shared-block application
+        return {"ssd_scan": cfg.num_layers,
+                "flash_attention": cfg.num_layers // cfg.hybrid_attn_every}
+    if cfg.family == "ssm":
         return {"ssd_scan": cfg.num_layers}
     return {"flash_attention": cfg.num_layers}
 

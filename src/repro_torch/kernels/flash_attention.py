@@ -5,9 +5,13 @@ TPU kernel ``_attn_kernel``): online-softmax GQA attention with fp32 m, l
 and accumulator, scale 1/√hd, an optional causal mask aligned top-left, the
 ragged kv tail masked, ``p`` rounded to v's type before the product with v,
 and the output in q's type. q (B, H, Sq, hd), k and v (B, KV, Skv, hd),
-fp32 or bf16, hd in {16, 32, 64, 128}. The kernel source is
+fp32 or bf16, hd in ``HEAD_DIMS`` (16, 32, 64, 80, 112, 128, 256: every
+head_dim of the repo's full-size configs). The kernel source is
 ``csrc/flash_attention.cu``; its header says what bounds it on the card and
-how it is laid out.
+how it is laid out: bf16 runs on the tensor cores (``wgmma``, its tiles
+brought by TMA), fp32 on FMAs. TMA reads a tensor whose start and (batch,
+head, row) strides are 16-byte aligned, so ``launch`` copies a bf16 q, k or
+v that is not into a contiguous one first; the model's views always are.
 
 Build: at first use, ``kernels.build`` compiles the source into a shared
 library with a plain C interface under ``build/kernels/``, loaded with
@@ -36,7 +40,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: to count one run.
 LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
 
@@ -59,6 +63,12 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i32
         _lib = lib
     return _lib
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Start and (batch, head, row) strides on 16-byte boundaries."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:3])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,6 +101,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention needs unit stride along head_dim, got "
                              f"strides {t.stride()}")
+    if q.dtype == torch.bfloat16:  # TMA's 16-byte alignment
+        q, k, v = (t if _aligned16(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), device=q.device, dtype=q.dtype).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _library()

@@ -245,8 +245,10 @@ def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset=0,
                    kv_len=None) -> torch.Tensor:
     """``attn_impl="flash_pallas"`` with no cache runs the flash_attention
     kernel (its plain version for CPU tensors; on a CUDA tensor it launches
-    or raises). With a cache (``kv_len`` given) or a ``q_offset``, which the
-    kernel does not take, it takes the chunked path, as in the reference."""
+    or raises), at every head_dim of the repo's configs (16 to 256, 80 and
+    112 among them: ``kernels.flash_attention.HEAD_DIMS``). With a cache
+    (``kv_len`` given) or a ``q_offset``, which the kernel does not take, it
+    takes the chunked path, as in the reference."""
     impl = cfg.attn_impl
     if impl == "flash_pallas":
         if kv_len is None and q_offset == 0:

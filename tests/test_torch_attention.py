@@ -40,6 +40,9 @@ SHAPES = [
 ]
 # causal with sq != skv, where top-left and bottom-right alignment differ
 CAUSAL_RAGGED = [(1, 4, 2, 96, 160, 32, True), (2, 4, 1, 160, 96, 16, True)]
+# the head_dims of hubert-xlarge (80) and zamba2-7b (112), which are not
+# powers of two, at ragged lengths
+WIDE_HEADS = [(1, 4, 2, 72, 72, 80, True), (1, 2, 1, 40, 100, 112, False)]
 
 # the reference's functions, compiled once per shape (eager dispatch of
 # their scans and einsums costs more than the compile)
@@ -74,7 +77,7 @@ def _plain(q, k, v, causal, dtype):
 
 
 @pytest.mark.parametrize("shape,dtype",
-                         [(s, d) for s in SHAPES for d in ("float32", "bfloat16")]
+                         [(s, d) for s in SHAPES + WIDE_HEADS for d in ("float32", "bfloat16")]
                          + [(s, "float32") for s in CAUSAL_RAGGED])
 def test_plain_version_matches_pallas_kernel(shape, dtype):
     q, k, v = _qkv(*shape[:6])

@@ -1,8 +1,8 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
 ibn_pointwise forward and backward, flash_attention, ssd_scan and gmm
 forward, and the prefills of the dense transformer (flash_attention), the
-Mamba2 LM (ssd_scan) and the MoE transformer (gmm) against the port's CPU
-forward. Every test here carries the ``cuda`` marker
+Mamba2 LM (ssd_scan), the MoE transformer (gmm) and the hybrid
+(flash_attention and ssd_scan) against the port's CPU forward. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -94,11 +94,18 @@ def test_kernel_gradient_matches_plain_version_on_card(n, ci, co, act):
 
 
 # flash_attention: tests/test_kernels.py's shapes, causal with sq != skv, a
-# ragged tile, every head_dim; (b, h, kv, sq, skv, hd, causal)
+# ragged tile, then every other head_dim of the configs (hubert-xlarge's 80,
+# zamba2-7b's 112, gemma-2b's 256) with G 1, 2 and 8 at lengths that are not
+# multiples of the kv tile, causal with sq != skv both ways, and a single
+# row and a tile shorter than the kv tile; (b, h, kv, sq, skv, hd, causal)
 ATTN_SHAPES = [
     (1, 4, 4, 64, 64, 32, True), (2, 4, 2, 64, 64, 32, True), (1, 8, 1, 128, 128, 64, True),
     (2, 4, 1, 96, 160, 32, False), (1, 2, 2, 200, 200, 16, True),
     (1, 4, 2, 96, 160, 32, True), (2, 4, 1, 160, 96, 16, True), (1, 16, 8, 1025, 1025, 128, True),
+    (2, 8, 8, 1000, 1000, 80, True), (1, 8, 4, 1000, 1025, 112, True),
+    (1, 8, 1, 1025, 1000, 256, True), (2, 4, 2, 300, 1025, 80, False),
+    (1, 16, 2, 1000, 1000, 112, False), (1, 2, 2, 130, 70, 256, False),
+    (2, 4, 2, 1, 1, 128, True), (1, 4, 4, 40, 77, 64, False),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -141,6 +148,15 @@ def test_flash_attention_takes_model_layout_views_and_refuses_what_it_cannot_run
     with pytest.raises(ValueError, match="head_dim"):
         tflash.launch(q[..., :48].transpose(1, 2), k[..., :48].transpose(1, 2),
                       v[..., :48].transpose(1, 2), causal=True)
+    # bf16 views whose head stride (72) is not 16-byte aligned: the wrapper
+    # copies them for TMA, one launch
+    wide = [torch.nn.functional.pad(t, (0, 8)).bfloat16()[..., :64] for t in (q, k, v)]
+    assert wide[0].stride(2) == 72
+    before = tflash.LAUNCHES
+    got = ops.flash_attention(*wide, causal=True)
+    assert tflash.LAUNCHES == before + 1
+    want = flash_attention_ref(*(t.transpose(1, 2) for t in wide), causal=True).transpose(1, 2)
+    assert torch.max(torch.abs(got.float() - want.float())).item() < ATTN_TOL["bfloat16"]
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tflash.launch(*(t.half().transpose(1, 2) for t in (q, k, v)), causal=True)
     monkeypatch.setitem(kbuild.DEVICES, q.device.index, ((8, 0), 132))
@@ -165,6 +181,28 @@ def test_prefill_on_card_launches_the_kernel_once_per_layer():
                                    cfg)
     assert torch.max(torch.abs(got.cpu() - want)).item() / want.abs().max().item() < 1e-4
 
+
+@pytest.mark.cuda
+def test_hybrid_prefill_on_card_launches_attention_once_per_shared_block():
+    """A Zamba2-style hybrid with zamba2-7b's head_dim 112 under
+    ``flash_pallas``: one flash_attention launch per application of the
+    shared block, one ssd_scan per Mamba2 layer; fp32 logits on the card
+    against the port's CPU forward."""
+    _need_sm90()
+    cfg = ModelConfig(family="hybrid", name="t-hybrid", num_layers=5, hybrid_attn_every=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, head_dim=112, d_ff=256,
+                      vocab_size=1000, ssm_state=64, ssm_head_dim=32, ssm_chunk=32,
+                      attn_impl="flash_pallas", compute_dtype="float32")
+    params = api.init(0, cfg, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(10).integers(0, 1000, size=(2, 77))).cuda()
+    before = (tflash.LAUNCHES, tssd.LAUNCHES)
+    with torch.no_grad():
+        got, _ = api.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        assert tflash.LAUNCHES - before[0] == cfg.num_layers // cfg.hybrid_attn_every
+        assert tssd.LAUNCHES - before[1] == cfg.num_layers
+        want, _ = api.forward(tree_map(lambda t: t.cpu(), params), {"tokens": toks.cpu()}, cfg)
+    assert torch.max(torch.abs(got.cpu() - want)).item() / want.abs().max().item() < 1e-4
 
 
 # ssd_scan: tests/test_kernels.py's shapes, a ragged tail with G > 1, a chunk

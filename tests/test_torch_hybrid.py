@@ -1,7 +1,7 @@
 """The port's Zamba2-style hybrid (Mamba2 groups with one shared attention
 block, and a tail) against the JAX reference on the CPU, on the same
-parameters: forward logits in fp32 and bf16 compute, and decode steps from
-a zero cache.
+parameters: forward logits in fp32 and bf16 compute, and under
+``attn_impl="flash_pallas"``, and decode steps from a zero cache.
 
 Config: ``zamba2_7b.SMOKE`` (5 Mamba2 layers: 2 groups of 2, each followed
 by the shared block, and a tail of 1). Parameters and tokens come from
@@ -19,6 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import zamba2_7b as ref_zamba  # noqa: E402
 from repro.models import hybrid as RH  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import api, hybrid as TH  # noqa: E402
 from test_torch_ssm import (DECODE_TOL, LOGIT_TOL, _port, _shapes, draw_params,  # noqa: E402
@@ -45,6 +47,27 @@ def test_forward_matches_reference(compute_dtype):
     assert tssd.LAUNCHES == before  # the plain version on the CPU
     assert logits.shape == want.shape and float(aux) == 0.0
     assert rel(logits.numpy(), want) < LOGIT_TOL[compute_dtype]
+
+
+def test_forward_under_flash_pallas_matches_reference(monkeypatch):
+    """The shared block's attention through ``ops.flash_attention`` (zamba2-7b
+    runs head_dim 112, which the kernel takes), once per application, the
+    plain version on the CPU; the reference's CPU path runs its chunked
+    attention, the same function."""
+    cfg = dataclasses.replace(CFG, compute_dtype="float32", attn_impl="flash_pallas")
+    toks = tokens(cfg.vocab_size, 37, seed=9)
+    want = np.asarray(jax.jit(lambda p, t: RH.forward(p, {"tokens": t}, cfg))(
+        _params(), jnp.asarray(toks)), np.float32)
+    calls = []
+    flash = kops.flash_attention
+    monkeypatch.setattr(kops, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or flash(*a, **kw))
+    params = TH.params_from_reference(_params(), "cpu")
+    before = tflash.LAUNCHES
+    logits, _ = api.forward(params, {"tokens": torch.from_numpy(toks)}, _port(cfg))
+    assert tflash.LAUNCHES == before  # the plain version on the CPU
+    assert len(calls) == TH._plan(cfg)[0]  # once per shared-block application
+    assert rel(logits.numpy(), want) < LOGIT_TOL["float32"]
 
 
 def test_decode_steps_match_reference_and_forward():

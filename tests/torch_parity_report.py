@@ -107,12 +107,14 @@ def attention_rows():
     rows = []
     for dtype in ("float32", "bfloat16"):
         err = 0.0
-        for shape in ta.SHAPES + (ta.CAUSAL_RAGGED if dtype == "float32" else []):
+        for shape in ta.SHAPES + ta.WIDE_HEADS + (ta.CAUSAL_RAGGED if dtype == "float32"
+                                                  else []):
             q, k, v = ta._qkv(*shape[:6])
             err = max(err, float(np.max(np.abs(ta._plain(q, k, v, shape[6], dtype)
                                                - ta._pallas(q, k, v, shape[6], dtype)))))
-        rows.append((f"kernels.ref.flash_attention_ref vs Pallas (interpret), {dtype}"
-                     + (", incl. causal sq != skv" if dtype == "float32" else ""),
+        rows.append((f"kernels.ref.flash_attention_ref vs Pallas (interpret), {dtype}, "
+                     "incl. hd 80 and 112"
+                     + (", causal sq != skv" if dtype == "float32" else ""),
                      "test_plain_version_matches_pallas_kernel", ta.TOL[dtype], err))
     err = 0.0
     for impl, fn, jfn in (("naive", ta.TL.naive_attention, ta._naive),
@@ -297,6 +299,15 @@ def family_rows():
                          "test_forward_matches_reference" if fam != "moe"
                          else "test_forward_and_aux_match_reference",
                          mod.LOGIT_TOL[dtype], float(tss.rel(got.numpy(), want))))
+    cfg = tt.dataclasses.replace(th.CFG, compute_dtype="float32", attn_impl="flash_pallas")
+    toks = tss.tokens(cfg.vocab_size, 37, seed=9)
+    want = np.asarray(jax.jit(lambda p, t: th.RH.forward(p, {"tokens": t}, cfg))(
+        th._params(), jnp.asarray(toks)), np.float32)
+    got, _ = tss.api.forward(th.TH.params_from_reference(th._params(), "cpu"),
+                             {"tokens": torch.from_numpy(toks)}, tss._port(cfg))
+    rows.append(("hybrid forward logits / max, smoke config, flash_pallas, float32 compute",
+                 "test_forward_under_flash_pallas_matches_reference", th.LOGIT_TOL["float32"],
+                 float(tss.rel(got.numpy(), want))))
     for fam, mod, base, rmod, tmod, max_len in (("ssm", tss, tss.ref_mamba.SMOKE, tss.RS,
                                                  tss.TS, 0),
                                                 ("hybrid", th, th.CFG, th.RH, th.TH, th.MAX)):
