@@ -27,10 +27,13 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                card at tests/test_kernels.py's shapes (fp32 and bf16), causal
                with sq != skv, head_dims 80, 112 and 256 with G 1, 2 and 8 at
                S 1000 and 1025, and the served model's prefill shape (B 8,
-               H 16, KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025);
-               times the kernel, the plain version and
-               ``scaled_dot_product_attention`` there, at S 4096, and at
-               zamba2-7b's, hubert-xlarge's and gemma-2b's heads;
+               H 16, KV 8, hd 128, bf16, causal, S 1024 and a ragged 1025),
+               each on (B, S, H, hd) views as the model passes them and
+               contiguous, bf16 also per row against a control; times the
+               kernel, the plain version and
+               ``scaled_dot_product_attention`` there (on the model's views,
+               and once contiguous), at S 4096, and at zamba2-7b's,
+               hubert-xlarge's and gemma-2b's heads;
 7. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, and zamba2-7b's H 112 N 64, and the plain version
@@ -117,6 +120,13 @@ MAIN_PATH_SCENARIO = "lat-0.5ms"
 # tests/test_kernels.py's tolerances (fp32 sums in another order; bf16 rounds
 # p and the output to 8 bits of mantissa)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 is also held per row: a row's largest |error| over the row's largest
+# |plain value|. Over n keys |o| is about n^-1/2, so at S 4096 the absolute
+# 2e-2 is half a typical value and passes a kernel that drops a row's last
+# kv tile; per row, the kernel's and the plain version's o round to bf16 one
+# step (2^-7 of the row's largest value) apart, and the dropped tile moves
+# a row by about 0.2. Two steps:
+ATTN_ROW_TOL = 2.0 ** -6
 DEV = "cuda"  # every tensor of the attention, serve and llm phases
 # the served model's prefill attention: B, H, KV, S, hd (qwen3-1.7B, 8 x 1024)
 SERVE_ATTN = (8, 16, 8, 1024, 128)
@@ -479,18 +489,41 @@ def attention_bound_parts_ms(b, h, kv, sq, skv, hd, causal, dtype) -> tuple[floa
             4.0 * hd * pairs * b * h / PEAK_FLOP_PER_S[dtype] * 1e3)
 
 
-def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool) -> dict:
+def attention_inputs(b, h, kv, sq, skv, hd, dtype, gen, layout: str):
+    """q (B, H, Sq, hd), k and v (B, KV, Skv, hd) from N(0, 1): transposed
+    views of (B, S, H, hd) tensors ("bshd"), as ``ops.flash_attention``
+    passes the model's, or contiguous ("bhsd")."""
+    def draw(heads, rows):
+        if layout == "bshd":
+            t = torch.randn((b, rows, heads, hd), generator=gen, device=DEV)
+            return t.to(dtype).transpose(1, 2)
+        return torch.randn((b, heads, rows, hd), generator=gen, device=DEV).to(dtype)
+
+    return draw(h, sq), draw(kv, skv), draw(kv, skv)
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of each row over the row's largest |want|,
+    the worst row."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    return (err / want.float().abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool,
+                    layout: str = "bshd") -> dict:
     """flash_attention against its plain version on the card."""
-    q = torch.randn((b, h, sq, hd), generator=gen, device=DEV).to(dtype)
-    k = torch.randn((b, kv, skv, hd), generator=gen, device=DEV).to(dtype)
-    v = torch.randn((b, kv, skv, hd), generator=gen, device=DEV).to(dtype)
+    q, k, v = attention_inputs(b, h, kv, sq, skv, hd, dtype, gen, layout)
     out = flash_attention.launch(q, k, v, causal=causal)
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     rec = {"shape": (b, h, kv, sq, skv, hd), "causal": causal, "dtype": str(dtype)[6:],
-           "max_abs_err": err, "tol": ATTN_TOL[dtype]}
-    if not err <= ATTN_TOL[dtype]:
+           "layout": layout, "max_abs_err": err, "tol": ATTN_TOL[dtype]}
+    ok = err <= ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        rec["row_rel_err"] = row_rel_err(out, want)
+        ok = ok and rec["row_rel_err"] <= ATTN_ROW_TOL
+    if not ok:
         raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
     if timed:
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -504,6 +537,20 @@ def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool) -> d
         rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
         rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
                            else "operations")
+        if dtype == torch.bfloat16:
+            # controls of the bf16 checks on these inputs: the plain version
+            # with p and o kept in fp32, a rounding the checks must pass, and
+            # with the last kv tile (64 keys) dropped, a fault they must catch
+            fp32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+            drop = flash_attention_ref(q, k[:, :, :-64], v[:, :, :-64], causal=causal)
+            rec["controls"] = {
+                name: {"max_abs_err": (c.float() - want.float()).abs().max().item(),
+                       "row_rel_err": row_rel_err(c, want)}
+                for name, c in (("fp32_p", fp32), ("dropped_tile", drop))}
+            if not (rec["controls"]["fp32_p"]["row_rel_err"] <= ATTN_ROW_TOL
+                    < rec["controls"]["dropped_tile"]["row_rel_err"]):
+                raise AssertionError(f"the per-row bf16 check does not tell the controls "
+                                     f"apart: {rec['controls']}")
     return rec
 
 
@@ -513,7 +560,8 @@ def attention_phase(card: str) -> dict:
     # tests/test_kernels.py's shapes, causal with sq != skv, the other
     # head_dims of the configs (80, 112, 256) with G 1, 2 and 8 at lengths
     # that are not multiples of the kv tile, one row, and rows shorter than
-    # a tile
+    # a tile; each in the model's layout and contiguous, which the kernel
+    # reads through differently ordered TMA maps
     for shape in ((1, 4, 4, 64, 64, 32, True), (2, 4, 2, 64, 64, 32, True),
                   (1, 8, 1, 128, 128, 64, True), (2, 4, 1, 96, 160, 32, False),
                   (1, 2, 2, 200, 200, 16, True), (1, 4, 2, 96, 160, 32, True),
@@ -523,36 +571,53 @@ def attention_phase(card: str) -> dict:
                   (1, 2, 2, 130, 70, 256, False), (2, 4, 2, 1, 1, 128, True),
                   (1, 4, 4, 40, 77, 64, False)):
         for dtype in (torch.float32, torch.bfloat16):
-            records.append(check_attention(*shape, dtype, gen, timed=False))
+            for layout in ("bshd", "bhsd"):
+                records.append(check_attention(*shape, dtype, gen, timed=False, layout=layout))
     b, h, kv, s, hd = SERVE_ATTN
-    ragged = check_attention(b, h, kv, s + 1, s + 1, hd, True, torch.bfloat16, gen, timed=False)
+    ragged = [check_attention(b, h, kv, s + 1, s + 1, hd, True, torch.bfloat16, gen,
+                              timed=False, layout=layout) for layout in ("bshd", "bhsd")]
+    # timed in the model's layout, which the served prefill gives the kernel,
+    # and once contiguous
     main = check_attention(b, h, kv, s, s, hd, True, torch.bfloat16, gen, timed=True)
+    contiguous = check_attention(b, h, kv, s, s, hd, True, torch.bfloat16, gen, timed=True,
+                                 layout="bhsd")
     # 4 times longer sequences at a quarter of the batch: each item walks 4 times
     # as many kv tiles, so its start and end weigh less
     long = check_attention(b // 4, h, kv, 4 * s, 4 * s, hd, True, torch.bfloat16, gen,
                            timed=True)
     others = {name: check_attention(b, oh, okv, s, s, ohd, oc, torch.bfloat16, gen, timed=True)
               for name, (oh, okv, ohd, oc) in OTHER_ATTN.items()}
-    records += [ragged, main, long, *others.values()]
+    timed_recs = [main, contiguous, long, *others.values()]
+    records += ragged + timed_recs
     worst = max(r["max_abs_err"] / r["tol"] for r in records)
+    worst_row = max(r["row_rel_err"] for r in records if "row_rel_err" in r)
     print(f"attention: {len(records)} checks against the plain version (fp32 and bf16, "
           f"hd {sorted({r['shape'][5] for r in records})}, causal sq != skv, S {s} and "
-          f"{s + 1}); worst error {worst:.3g} of its tolerance  [{card}]")
-    print(f"attention: B {b} H {h} KV {kv} S {s} hd {hd} bf16 causal: kernel "
-          f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, sdpa "
+          f"{s + 1}, (B, S, H, hd) views and contiguous); worst error {worst:.3g} of its "
+          f"tolerance; bf16 per row {worst_row:.3g} (limit {ATTN_ROW_TOL:.3g})  [{card}]")
+    print(f"attention: B {b} H {h} KV {kv} S {s} hd {hd} bf16 causal, (B, S, H, hd) views: "
+          f"kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, sdpa "
           f"{main['library_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']}; "
           f"bytes {main['bound_bytes_ms']:.4f}, operations {main['bound_ops_ms']:.4f}); "
           f"max |err| {main['max_abs_err']:.3g} (ragged S {s + 1}: "
-          f"{ragged['max_abs_err']:.3g}), sdpa vs plain {main['library_err']:.3g}  [{card}]")
-    for name, rec in [("qwen3-1.7B", main), ("qwen3-1.7B at S 4096", long), *others.items()]:
+          f"{max(r['max_abs_err'] for r in ragged):.3g}), sdpa vs plain "
+          f"{main['library_err']:.3g}; contiguous: kernel {contiguous['ms']:.4f} ms, sdpa "
+          f"{contiguous['library_ms']:.4f} ms  [{card}]")
+    for name, rec in [("qwen3-1.7B", main), ("qwen3-1.7B contiguous", contiguous),
+                      ("qwen3-1.7B at S 4096", long), *others.items()]:
         flop = rec["bound_ops_ms"] * 1e-3 * PEAK_FLOP_PER_S[torch.bfloat16]
+        ctl = rec["controls"]
         print(f"attention: {name} (B, H, KV, Sq, Skv, hd) {rec['shape']} bf16"
               f"{' causal' if rec['causal'] else ''}: kernel {rec['ms']:.4f} ms "
               f"({flop / rec['ms'] / 1e9:.1f} TFLOP/s), sdpa {rec['library_ms']:.4f} ms "
               f"({flop / rec['library_ms'] / 1e9:.1f}), plain {rec['plain_ms']:.4f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max |err| "
-              f"{rec['max_abs_err']:.3g}  [{card}]")
-    return {"records": records, "main": main, "long": long, "others": others}
+              f"{rec['max_abs_err']:.3g}, per row {rec['row_rel_err']:.3g}; controls: fp32 p "
+              f"{ctl['fp32_p']['max_abs_err']:.3g} / {ctl['fp32_p']['row_rel_err']:.3g} per "
+              f"row, last kv tile dropped {ctl['dropped_tile']['max_abs_err']:.3g} / "
+              f"{ctl['dropped_tile']['row_rel_err']:.3g} per row  [{card}]")
+    return {"records": records, "main": main, "contiguous": contiguous, "long": long,
+            "others": others}
 
 
 def _device_times(prof, steps_run: int) -> dict:

@@ -61,7 +61,9 @@
 //         (batch, head, row) strides that are multiples of 8 elements (TMA's
 //         rule; the wrapper copies anything else). ptxas reports 168
 //         registers at launch; only hd 256 spills (a few bytes: its 128 fp32
-//         accumulators per thread; the build prints the count);
+//         accumulators per thread; the build prints the count). Every
+//         mbarrier wait traps after about 2 s (mbar_wait), which ends the
+//         process's CUDA context instead of hanging the card;
 //   fp32: FMAs from shared memory, off the tensor cores (no TF32: fp32 stays
 //         fp32). 256 threads per 64-row q tile, kv tiles of 32 rows; q, the
 //         kv tile (k transposed) and p sit in shared memory as fp32, each
@@ -148,8 +150,12 @@ __device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
   return done != 0;
 }
 
-// waits for the phase of `parity` to complete; a wait of more than about two
-// seconds is a fault of the kernel's protocol, and traps rather than hangs
+// waits for the phase of `parity` to complete. A wait of more than about two
+// seconds is taken for a fault of the kernel's protocol and traps rather than
+// spins on: the trap leaves a sticky error on the process's CUDA context, so
+// every later CUDA call of that process fails and the process has to exit
+// (it does not fail one launch alone). A card time-sliced with another
+// process could stretch a healthy wait past the limit.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   if (mbar_try(bar, parity)) return;
   uint64_t t0;

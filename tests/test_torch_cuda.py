@@ -108,6 +108,9 @@ ATTN_SHAPES = [
     (2, 4, 2, 1, 1, 128, True), (1, 4, 4, 40, 77, 64, False),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 also per row, relative to the row's largest |plain value| (two bf16
+# steps; chip_smoke.ATTN_ROW_TOL says why)
+ATTN_ROW_TOL = 2.0 ** -6
 
 
 def _need_sm90():
@@ -116,22 +119,39 @@ def _need_sm90():
         pytest.skip("the kernel is built for sm_90a")
 
 
+def _attention_inputs(rng, b, h, kv, sq, skv, hd, td, layout):
+    """q (B, H, Sq, hd), k and v (B, KV, Skv, hd): transposed views of
+    (B, S, H, hd) tensors, as ``ops.flash_attention`` passes the model's,
+    or contiguous."""
+    def draw(heads, rows):
+        shape = (b, rows, heads, hd) if layout == "bshd" else (b, heads, rows, hd)
+        t = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(td)
+        return t.transpose(1, 2) if layout == "bshd" else t
+
+    return draw(h, sq), draw(kv, skv), draw(kv, skv)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,kv,sq,skv,hd,causal", ATTN_SHAPES)
-def test_flash_attention_matches_plain_version_on_card(b, h, kv, sq, skv, hd, causal, dtype):
+def test_flash_attention_matches_plain_version_on_card(b, h, kv, sq, skv, hd, causal, dtype,
+                                                       layout):
     _need_sm90()
     rng = np.random.default_rng(3)
     td = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(td)
-               for s in ((b, h, sq, hd), (b, kv, skv, hd), (b, kv, skv, hd)))
+    q, k, v = _attention_inputs(rng, b, h, kv, sq, skv, hd, td, layout)
     before = tflash.LAUNCHES
     got = tflash.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tflash.LAUNCHES == before + 1
     assert got.dtype == td and got.shape == q.shape
-    want = flash_attention_ref(q, k, v, causal=causal)
-    assert torch.max(torch.abs(got.float() - want.float())).item() < ATTN_TOL[dtype]
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    err = torch.abs(got.float() - want)
+    assert torch.max(err).item() < ATTN_TOL[dtype]
+    if dtype == "bfloat16":
+        row = err.amax(dim=-1) / want.abs().amax(dim=-1).clamp_min(1e-30)
+        assert torch.max(row).item() <= ATTN_ROW_TOL
 
 
 @pytest.mark.cuda
