@@ -40,9 +40,12 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                against the sequential recurrence; times kernel and plain
                version (no single PyTorch call computes the scan);
 8. gmm       — holds ``gmm`` against its plain version (fp32 and bf16) at
-               tests/test_kernels.py's shapes, ragged edges, strided views and
-               qwen2-moe-a2.7b's three expert products; times kernel, plain
-               version and ``torch.bmm``;
+               tests/test_kernels.py's shapes, ragged edges, strided views, the
+               bf16 body's edges (C 1 to 8192, D off the K steps, F under one
+               tile, 60 experts of 8 rows) and qwen2-moe-a2.7b's four expert
+               products, with two controls that the bf16 limit must fail;
+               times kernel, plain version and ``torch.bmm`` at the four
+               products;
 9. serve     — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
                random weights from a seed on the card, 8 prompts of 1024 tokens
                through ``make_prefill_step`` (exactly 28 kernel launches) and the
@@ -162,6 +165,9 @@ SEQ_TOL = 2e-3
 # gmm against its plain version, relative to max |plain value|: fp32 sums in
 # another order; bf16 rounds the output to 8 bits of mantissa
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gmm's edge shapes (E, C, D, F), checked in fp32 and bf16 (gmm_phase)
+GMM_EDGES = [(3, 1, 256, 1408), (3, 33, 72, 256), (2, 64, 1000, 1408), (2, 65, 2048, 72),
+             (2, 129, 8, 1408), (2, 8192, 2048, 1408), (60, 8, 2048, 1408)]
 # tests/test_kernels.py's ssd_scan shapes (b, s, h, p, g, n, chunk), then a
 # ragged tail with G > 1 and a chunk longer than S
 SSD_SMALL = [(2, 64, 4, 16, 1, 32, 16), (1, 128, 4, 8, 2, 16, 32), (2, 96, 2, 32, 1, 64, 32),
@@ -895,20 +901,27 @@ def gmm_bound_parts_ms(e, c, d, f, dtype) -> tuple[float, float]:
             2.0 * e * c * d * f / PEAK_FLOP_PER_S[dtype] * 1e3)
 
 
-def check_gmm(e, c, d, f, dtype, gen, timed: bool, strided: bool = False) -> dict:
-    """gmm against its plain version (ref.gmm_ref) on the card; ``strided``
-    passes x with every other row and w as a transposed view."""
+def check_gmm(e, c, d, f, dtype, gen, timed: bool, layout: str = "contiguous") -> dict:
+    """gmm against its plain version (ref.gmm_ref) on the card. ``layout``
+    "strided" passes x with every other row and w as a transposed view (the
+    bf16 body copies that w), "x_rows" x with every other row and w
+    contiguous, both of which the bf16 body reads through its TMA maps."""
+    strided = layout != "contiguous"
     x = torch.randn((e, 2 * c if strided else c, d), generator=gen, device=DEV).to(dtype)
-    w = (torch.randn((e, f, d) if strided else (e, d, f), generator=gen, device=DEV)
+    w = (torch.randn((e, f, d) if layout == "strided" else (e, d, f), generator=gen, device=DEV)
          / math.sqrt(d)).to(dtype)
     if strided:
-        x, w = x[:, ::2], w.transpose(1, 2)
+        x = x[:, ::2]
+    if layout == "strided":
+        w = w.transpose(1, 2)
+    if layout == "x_rows" and not gmm._fits_bf16_body(x):
+        raise AssertionError(f"x[:, ::2] of {tuple(x.shape)} is not one the TMA maps describe")
     y = gmm.launch(x, w)
     want = gmm_ref(x, w)
     torch.cuda.synchronize()
     err = rel_err(y, want)[0]
     rel = err / want.float().abs().max().item()
-    rec = {"shape": (e, c, d, f), "dtype": str(dtype)[6:], "strided": strided,
+    rec = {"shape": (e, c, d, f), "dtype": str(dtype)[6:], "layout": layout,
            "max_abs_err": err, "rel_err": rel, "tol": GMM_TOL[dtype]}
     if not (torch.isfinite(y.float()).all() and rel <= GMM_TOL[dtype]):
         raise AssertionError(f"gmm disagrees with its plain version: {rec}")
@@ -923,6 +936,19 @@ def check_gmm(e, c, d, f, dtype, gen, timed: bool, strided: bool = False) -> dic
         rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
         rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
                            else "operations")
+        if dtype == torch.bfloat16:
+            # controls of the bf16 limit on these inputs, faults it must
+            # catch: the plain version with the last 64-wide K panel dropped,
+            # and with the last 128-row tile of every expert zeroed
+            dropped = gmm_ref(x[..., :d - 64], w[:, :d - 64])
+            zeroed = want.clone()
+            zeroed[:, (c - 1) // 128 * 128:] = 0
+            rec["controls"] = {name: (ctl.float() - want.float()).abs().max().item()
+                               / want.float().abs().max().item()
+                               for name, ctl in (("dropped_k_panel", dropped),
+                                                 ("zeroed_row_tile", zeroed))}
+            if not min(rec["controls"].values()) > GMM_TOL[dtype]:
+                raise AssertionError(f"the bf16 limit passes a control: {rec['controls']}")
     return rec
 
 
@@ -933,7 +959,8 @@ def moe_gmm_shapes() -> dict:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
     cap = moe.capacity_for(SERVE_BATCH * PROMPT, cfg)
     dec = moe.capacity_for(SERVE_BATCH, cfg)
-    return {"gate/up": (e, cap, d, f), "down": (e, cap, f, d), "decode gate/up": (e, dec, d, f)}
+    return {"gate/up": (e, cap, d, f), "down": (e, cap, f, d), "decode gate/up": (e, dec, d, f),
+            "decode down": (e, dec, f, d)}
 
 
 def gmm_phase(card: str) -> dict:
@@ -944,7 +971,17 @@ def gmm_phase(card: str) -> dict:
                   (3, 129, 33, 257)):
         for dtype in (torch.float32, torch.bfloat16):
             records.append(check_gmm(*shape, dtype, gen, timed=False))
-            records.append(check_gmm(*shape, dtype, gen, timed=False, strided=True))
+            records.append(check_gmm(*shape, dtype, gen, timed=False, layout="strided"))
+    # the bf16 body's edges: C on both sides of the 64-row body and of one
+    # and two 128-row tiles, and the multi-token cache fill's 8192; D off the
+    # 64-wide K steps; F under one tile and off the 256-wide tiles; 60
+    # experts of 8 rows, so each CTA walks many tiles and the ring's parity
+    # wraps many times; x[:, ::2] read through the TMA map
+    for shape in GMM_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            records.append(check_gmm(*shape, dtype, gen, timed=False))
+    records.append(check_gmm(3, 100, 1000, 1408, torch.bfloat16, gen, timed=False,
+                             layout="x_rows"))
     main = {}
     for name, shape in moe_gmm_shapes().items():
         records.append(check_gmm(*shape, torch.float32, gen, timed=False))
@@ -952,14 +989,22 @@ def gmm_phase(card: str) -> dict:
         records.append(main[name])
     worst = max(r["rel_err"] / r["tol"] for r in records)
     print(f"gmm: {len(records)} checks against the plain version (fp32 and bf16, "
-          f"tests/test_kernels.py's shapes, ragged edges, strided views, qwen2-moe's "
-          f"three products); worst error {worst:.3g} of its tolerance  [{card}]")
+          f"tests/test_kernels.py's shapes, ragged edges, strided views, C "
+          f"{sorted({r['shape'][1] for r in records})}, qwen2-moe's four products); worst "
+          f"error {worst:.3g} of its tolerance; bf16 worst "
+          f"{max(r['rel_err'] for r in records if r['dtype'] == 'bfloat16'):.3g}, fp32 worst "
+          f"{max(r['rel_err'] for r in records if r['dtype'] == 'float32'):.3g} of max |y|  "
+          f"[{card}]")
     for name, r in main.items():
-        print(f"gmm: {name} (E, C, D, F) = {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, "
-              f"operations {r['bound_ops_ms']:.4f}); {r['rel_err']:.3g} of max |y| (bmm "
-              f"{r['library_rel_err']:.3g})  [{card}]")
+        flop = r["bound_ops_ms"] * 1e-3 * PEAK_FLOP_PER_S[torch.bfloat16]
+        ctl = r["controls"]
+        print(f"gmm: {name} (E, C, D, F) = {r['shape']} bf16: kernel {r['ms']:.4f} ms "
+              f"({flop / r['ms'] / 1e9:.0f} TFLOP/s), plain {r['plain_ms']:.4f} ms, bmm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+              f"{r['bound_bytes_ms']:.4f}, operations {r['bound_ops_ms']:.4f}); "
+              f"{r['rel_err']:.3g} of max |y| (bmm {r['library_rel_err']:.3g}); controls: last "
+              f"K panel dropped {ctl['dropped_k_panel']:.3g}, last row tile zeroed "
+              f"{ctl['zeroed_row_tile']:.3g} (limit {GMM_TOL[torch.bfloat16]})  [{card}]")
     return {"records": records, "main": main}
 
 
@@ -1428,6 +1473,9 @@ def main() -> int:
         "shape": "gate/up prefill product (E, C, D, F) = "
                  f"{gmm_res['main']['gate/up']['shape']}, bf16",
         "launches_per_prefill": serve_moe["prefill_launches"]["gmm"],
+        "products": {name: {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by", "controls")}
+                     for name, r in gmm_res["main"].items()},
     }]}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -7,38 +7,82 @@
 // (repro/models/moe.py::expert_ffn, the three "ecd,edf->ecf" einsums over the
 // dispatch buffers). The TPU version walks an (E, C/bc, F/bf, D/bd) grid with
 // the contraction axis sequential and an fp32 accumulator in VMEM scratch;
-// here one launch covers every expert: the grid is (C tiles, F tiles, E), and
-// each block runs its whole D loop with the accumulator in registers, so
-// nothing is carried between blocks.
+// here one launch covers every expert and a block runs the whole D loop of
+// an output tile with the accumulator in registers, so nothing is carried
+// between blocks.
 //
 // Two bodies, chosen by the launcher from the type:
-//   bf16: 128 x 128 output tiles, 8 warps of 64 x 32, the products on the
-//         tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), K
-//         steps of 32 copied with cp.async in 16-byte chunks through a ring
-//         of three shared buffers, so two steps' copies are in flight while
-//         one step's products run. It takes x with unit stride along D and w
-//         along F, D and F multiples of 8, the other strides multiples of 8
-//         and both starts 16-byte aligned (what the MoE layer passes); ragged
-//         C is masked, and a 16-byte chunk past the D or F edge reads zeros.
-//         The wrapper (gmm.py) copies other bf16 operands into zero-padded
-//         contiguous ones first;
+//   bf16: wgmma with TMA and warp specialisation, persistent. One CTA per SM
+//         walks output tiles expert-major (the C tiles fastest, then the F
+//         tiles, then the expert), so the CTAs in flight share about four
+//         experts' x and w in L2. Warpgroup 0 loads: one thread issues TMA
+//         copies of K steps of 64 into a ring of stages, each with a "full"
+//         mbarrier (TMA bytes) and an "empty" one (one arrival per consumer
+//         warp that reads it); the ring runs on across tiles, so the next
+//         tile's first steps land while this tile's epilogue stores. x's map
+//         is 3-d (D, C, E), K-major: a step is a box of 64 columns by the
+//         tile's rows in the 128-byte swizzle. w's map is 3-d (F, D, E),
+//         MN-major as the MoE layer gives it (F contiguous): a step is BN/64
+//         boxes of 64 columns by 64 rows. E is a map dimension, so a box
+//         never crosses an expert, and TMA zero-fills rows past C and columns
+//         past D or F. The consumer warpgroups run wgmma.m64nNk16 (bf16 in,
+//         fp32 accumulate) with A and B from shared memory, one commit group
+//         per step, keeping one group in flight while the step before it
+//         goes back to the loader. The epilogue stores bf16 from registers:
+//         a transpose across each quad of lanes (two shfl.xor rounds) gives
+//         each lane 8 consecutive columns, stored as 16 bytes, masking rows
+//         past C and columns past F. Two shapes:
+//           C > 64: 128 x 256 tiles, two consumer warpgroups of 64 rows
+//             (setmaxnreg moves registers from the loader to them), 4
+//             stages of 48 KB, in clusters of two CTAs that take two C tiles
+//             of one expert and F tile: each loads its x box and half of the
+//             w boxes, which TMA multicasts into both, so a stage's empty
+//             barrier counts the consumer warps of both CTAs, and a loader
+//             waits for the last stages to come back before it leaves (its
+//             partner still signals its barriers). When C is one tile (65 to
+//             128 rows) the partner multiplies zeros;
+//           C <= 64 (decode: C = 32 at batch 8): 64 x 128 tiles, one consumer
+//             warpgroup, no cluster, 9 stages of 24 KB. That product is bound
+//             by bytes (w is 346 MB at qwen2-moe-a2.7b's shape, x 8 MB): what
+//             matters is w in flight on every SM, 8 stages of 16 KB of w per
+//             SM, over twice what the memory's rate times its latency asks
+//             for. The rows past C are zeros that wgmma multiplies at no cost
+//             in bytes; swapping A and B (F as the 64 rows) would fill them
+//             but put x, not w, in the ring's wide boxes and add a transposed
+//             epilogue, for no bytes saved. At C = 32 the tensor work is 2x
+//             what the product needs and still 1/5 of the byte bound.
+//         It takes operands TMA can describe: unit stride along the last
+//         axis, the other strides positive multiples of 8 elements (16
+//         bytes), 16-byte-aligned starts, and F a multiple of 8 (the
+//         epilogue's 16-byte stores into y's rows); the wrapper (gmm.py)
+//         copies other bf16 operands into zero-padded contiguous ones first.
+//         Every mbarrier wait traps after about 2 s (mbar_wait) instead of
+//         spinning on a fault of the protocol: the trap ends the process's
+//         CUDA context (every later CUDA call of that process fails), not
+//         one launch. GMM_BN and GMM_CL below set the C > 64 body's tile
+//         width and cluster; the shipped values won the comparisons in
+//         PERF.md;
 //   fp32: ibn_pointwise's 64 x 64 tile of fp32 FMAs (4 x 4 outputs per
 //         thread, K steps of 16), with the expert as the grid's z index.
 //         Operands are read through their (expert, row, column) strides, so
 //         strided views need no copy; ragged C, D and F are masked in the
 //         loaders (zeros past the edge) and the store. No TF32: fp32 stays
 //         fp32.
-// Why cp.async: on an H100 at the gate/up product below, the same tiles with
-// each load stored to shared memory before the next took 11.8 ms, and with a
-// step's loads staged in registers 5.1 ms; the ring takes 1.1 ms
-// (chip_smoke.py's gmm phase).
 //
 // What bounds it on an H100: qwen2-moe-a2.7b's prefill of 8 x 1024 tokens
-// gives (60, 688, 2048) @ (60, 2048, 1408) in bf16, 238 GFLOP against 0.63 GB:
-// bound by operations, 0.24 ms at the bf16 tensor-core peak. Decode at batch
-// 8 gives C = 32: 11 GFLOP against 0.35 GB of weights, bound by bytes,
-// 0.10 ms. This first version has no wgmma, no TMA and no warp
-// specialisation, and the decode shape wastes 3/4 of each 128-row tile.
+// gives (60, 688, 2048) @ (60, 2048, 1408) in bf16 (gate and up; down is
+// (60, 688, 1408) @ (60, 1408, 2048)), 238 GFLOP against 0.63 GB: bound by
+// operations, 0.24 ms at the bf16 tensor-core peak. Decode at batch 8 gives
+// C = 32: 11 GFLOP against 0.35 GB of weights, bound by bytes, 0.10 ms. The
+// first version of this kernel (mma.sync m16n8k16, 128 x 128 tiles copied
+// with cp.async through a 3-stage ring, a block per tile) took 1.13 ms and
+// 0.18 ms there; this one about 0.39 ms and 0.13 ms, against 0.35 ms and
+// 0.12 ms for torch.bmm (gmm_versions.py; PERF.md). What bounds the prefill
+// products now: a build that skips the output stores is 3% faster, and the
+// 128 x 256 tiles compute 768 x 1536 outputs of each expert's 688 x 1408 (F =
+// 1408 is 5.5 tiles) for 82% useful work.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -46,159 +90,483 @@
 
 namespace {
 
-// ---- bf16 on the tensor cores, for contiguous, 16-byte-aligned operands:
-// tiles copied with cp.async through a ring of STAGES shared buffers; w stays
-// [k][n] in shared memory and its fragments are gathered with two 16-bit
-// reads each (conflict-free at LDB = NB + 8).
-constexpr int MB = 128;
-constexpr int NB = 128;
-constexpr int KB = 32;
-constexpr int LDS = KB + 8;  // padded row of the [m][k] x tile, in bf16
-constexpr int MMA_THREADS = 256;
-constexpr int STAGES = 3;
-constexpr int LDB = NB + 8;  // padded row of the [k][n] w tile, in bf16
-constexpr int STAGE_ELEMS = MB * LDS + KB * LDB;
+// ---- bf16 on wgmma, with TMA and warp specialisation
+namespace wg {
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+using bf16 = __nv_bfloat16;
+
+#ifndef GMM_BN
+#define GMM_BN 256  // the C > 64 body's tile width (PERF.md compares 128)
+#endif
+#ifndef GMM_CL
+#define GMM_CL 2  // and its cluster: CTAs along C that share w's boxes (PERF.md compares 1)
+#endif
+constexpr int BK = 64;             // K per stage: a 128-byte row of bf16, the swizzle span
+constexpr int PANEL = 64 * 128;    // bytes of a 64 x 64 box in the 128-byte swizzle
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
+constexpr int SMEM_EXTRA = 1024 + 256;  // alignment to 1024 bytes, barriers
+// registers per thread after setmaxnreg (168 at launch with 384 threads):
+// the loader gives up what the consumers take
+constexpr int LOADER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// NC consumer warpgroups of 64 rows x BN, in clusters of CL CTAs along C;
+// as many stages as shared memory holds
+template <int NC, int BN, int CL>
+struct Body {
+  static constexpr int BM = 64 * NC;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int PANELS = (BN + 63) / 64;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE = A_BYTES + PANELS * PANEL;
+  static constexpr int STAGES = (SMEM_MAX - SMEM_EXTRA) / STAGE;
+  static constexpr int SMEM = STAGES * STAGE + SMEM_EXTRA;
+  static_assert(PANELS % CL == 0, "each CTA of a cluster loads as many of w's boxes");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  // layout 1: the 128-byte swizzle
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// waits for the phase of `parity` to complete. A wait of more than about two
+// seconds is taken for a fault of the kernel's protocol and traps rather than
+// spins on: the trap leaves a sticky error on the process's CUDA context, so
+// every later CUDA call of that process fails and the process has to exit
+// (it does not fail one launch alone). A card time-sliced with another
+// process could stretch a healthy wait past the limit.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try(bar, parity)) return;
+  uint64_t t0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try(bar, parity)) {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 2000000000ull) __trap();
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
+
+// one box of a 3-d map into shared memory, at coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// the same box into the same shared-memory offset of every CTA in `mask`
+// (a cluster's ranks), each signalling its own mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                   int c1, int c2, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// arrives on the mbarrier at `bar`'s offset in the cluster's CTA `cta`
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster's CTAs
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving register reads or writes across an
+// asynchronous wgmma that reads or writes them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the 4 x 4 transpose of 32-bit values across the 4 lanes of a quad: lane t
+// holds v[0..3] = M[t][0..3] and gets M[0..3][t]
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4], int t) {
+  // swap within lane pairs: the even lane keeps column 0 and 2 of its pair's
+  // 2 x 2 blocks, the odd lane columns 1 and 3
+  const bool odd = t & 1;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  const uint32_t u0 = odd ? r0 : v[0];
+  const uint32_t u1 = odd ? v[1] : r0;
+  const uint32_t u2 = odd ? r1 : v[2];
+  const uint32_t u3 = odd ? v[3] : r1;
+  // swap the off-diagonal 2 x 2 blocks between lanes t and t ^ 2
+  const bool high = t & 2;
+  const uint32_t s0 = __shfl_xor_sync(0xffffffffu, high ? u0 : u2, 2);
+  const uint32_t s1 = __shfl_xor_sync(0xffffffffu, high ? u1 : u3, 2);
+  return high ? make_uint4(s0, s1, u2, u3) : make_uint4(u0, u1, s0, s1);
+}
+
+// D (+)= A B, m64nNk16: A (64 x 16) K-major and B (16 x N) MN-major, both in
+// shared memory in the 128-byte swizzle; accumulate 0 overwrites D
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 128) wgmma_n128(d, a, b, accumulate);
+  if constexpr (N == 256) wgmma_n256(d, a, b, accumulate);
 }
 
-__global__ void __launch_bounds__(MMA_THREADS)
-gmm_bf16_async(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               __nv_bfloat16* __restrict__ y, int C, int D, int F, long long sxe,
-               long long sxc, long long swe, long long swd) {
-  extern __shared__ __align__(16) __nv_bfloat16 ring[];  // STAGES x (x tile, w tile)
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.x * MB;
-  const int n0 = blockIdx.y * NB;
-  const __nv_bfloat16* xe = x + e * sxe;
-  const __nv_bfloat16* we = w + e * swe;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
+template <int NC, int BN, int CL>
+__global__ void __launch_bounds__(Body<NC, BN, CL>::THREADS, 1)
+gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+               bf16* __restrict__ y, int C, int F, int groups_c, int tiles_f, int groups,
+               int nk) {
+  using G = Body<NC, BN, CL>;
+  constexpr int ST = G::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // every stage on a 1024-byte boundary (the 128-byte swizzle's atom); the
+  // same offsets in every CTA of a cluster
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + ST * G::STAGE;
+  auto a_at = [&](int s) { return base + s * G::STAGE; };
+  auto b_at = [&](int s) { return base + s * G::STAGE + G::A_BYTES; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  // A cluster walks groups of CL C tiles that share an expert and an F tile
+  // (group g: expert g / (groups_c * tiles_f), then the C tiles fastest);
+  // rank r of the cluster takes the group's C tile r
+  const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int first = blockIdx.x / CL;
+  const int stride = gridDim.x / CL;
+  auto decode = [&](int g, int& e, int& m0, int& n0) {
+    const int per_e = groups_c * tiles_f;
+    e = g / per_e;
+    const int r = g - e * per_e;
+    m0 = ((r % groups_c) * CL + rank) * G::BM;
+    n0 = (r / groups_c) * BN;
+  };
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NC * CL);  // one arrival per consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (CL > 1)
+    cluster_sync();  // the partners' barriers exist before anyone signals them
+  else
+    __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer: one thread keeps the ring full. It loads its own x box,
+    // and w's boxes p = rank, rank + CL, ... into every CTA of the cluster,
+    // so a stage's empty barrier waits for the consumers of all of them
+    if constexpr (NC > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LOADER_REGS));
+    if (threadIdx.x == 0) {
+      int it = 0;  // steps loaded so far, over all tiles: the ring's position
+      for (int g = first; g < groups; g += stride) {
+        int e, m0, n0;
+        decode(g, e, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % ST;
+          mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
+          mbar_expect(full(s), G::STAGE);
+          tma_load(a_at(s), &tx, kt * BK, m0, e, full(s));
+#pragma unroll
+          for (int p = rank; p < G::PANELS; p += CL) {
+            if constexpr (CL > 1)
+              tma_load_multicast(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e, full(s),
+                                 (1 << CL) - 1);
+            else
+              tma_load(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e, full(s));
+          }
+        }
+      }
+      // a cluster's CTAs signal each other's barriers: before leaving, wait
+      // until every consumer of the cluster has handed back every stage
+      if constexpr (CL > 1)
+        for (int k = 0; k < ST; ++k, ++it) mbar_wait(empty(it % ST), ((it / ST) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns a tile's rows 64 w .. 64 w + 63 (rows
+  // past C are zeros from TMA, multiplied and not stored)
+  if constexpr (NC > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int w = wgi - 1;
+  const int t128 = threadIdx.x - 128 * wgi;  // thread in the warpgroup
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  const int nk = (D + KB - 1) / KB;
+  float acc[BN / 2];  // n8 tiles of the output, as mma.sync's C fragments
+  // stage 0's descriptors: A is this warpgroup's 64 rows, 32 bytes per k16
+  // along the swizzled row; B is 16 rows of 128 bytes per k16, its 64-column
+  // panels PANEL apart. A stage or a k16 step adds its offset / 16.
+  const uint64_t desc_a = make_desc(a_at(0) + w * 64 * 128, 16, 1024);
+  const uint64_t desc_b = make_desc(b_at(0), PANEL, 1024);
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0f;
-
-  // 16-byte chunks: x tile MB rows x KB/8, w tile KB rows x NB/8; a chunk
-  // past an edge copies 0 bytes and reads as zeros
-  auto load = [&](int stage, int k0) {
-    __nv_bfloat16* As = ring + stage * STAGE_ELEMS;
-    __nv_bfloat16* Bs = As + MB * LDS;
-#pragma unroll
-    for (int l = 0; l < MB * KB / 8 / MMA_THREADS; ++l) {
-      const int c = tid + l * MMA_THREADS;
-      const int r = c / (KB / 8);
-      const int gm = m0 + r;
-      const int gk = k0 + 8 * (c % (KB / 8));
-      const bool in = gm < C && gk < D;
-      cp_async16(&As[r * LDS + 8 * (c % (KB / 8))], in ? xe + gm * sxc + gk : xe, in ? 16 : 0);
-    }
-#pragma unroll
-    for (int l = 0; l < KB * NB / 8 / MMA_THREADS; ++l) {
-      const int c = tid + l * MMA_THREADS;
-      const int r = c / (NB / 8);
-      const int gk = k0 + r;
-      const int gn = n0 + 8 * (c % (NB / 8));
-      const bool in = gk < D && gn < F;
-      cp_async16(&Bs[r * LDB + 8 * (c % (NB / 8))], in ? we + gk * swd + gn : we, in ? 16 : 0);
+  // hands stage s back to every CTA of the cluster (lane j of each warp
+  // signals rank j): all of them wrote into it
+  auto release = [&](int s) {
+    __syncwarp();
+    if constexpr (CL > 1) {
+      if (lane < CL) mbar_arrive_cluster(empty(s), lane);
+    } else if (lane == 0) {
+      mbar_arrive(empty(s));
     }
   };
 
+  int it = 0;  // steps consumed so far, over all tiles: the ring's position
+  for (int g = first; g < groups; g += stride) {
+    int e, m0, n0;
+    decode(g, e, m0, n0);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % ST;
+      mbar_wait(full(s), (it / ST) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      const uint64_t so = (s * G::STAGE) >> 4;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s * KB);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt has landed; every warp is done with step kt - 1
-    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * KB);
-    cp_async_commit();
-    const __nv_bfloat16* As = ring + (kt % STAGES) * STAGE_ELEMS;
-    const __nv_bfloat16* Bs = As + MB * LDS;
-#pragma unroll
-    for (int kk = 0; kk < KB; kk += 16) {
-      uint32_t af[4][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* p = &As[(wm + mt * 16 + grp) * LDS + kk + 2 * tig];
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * LDS);
-        af[mt][2] = ld32(p + 8);
-        af[mt][3] = ld32(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* p = &Bs[(kk + 2 * tig) * LDB + wn + nt * 8 + grp];
-        __nv_bfloat162 lo(p[0], p[LDB]);
-        __nv_bfloat162 hi(p[8 * LDB], p[9 * LDB]);
-        bf[nt][0] = *reinterpret_cast<uint32_t*>(&lo);
-        bf[nt][1] = *reinterpret_cast<uint32_t*>(&hi);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma<BN>(acc, desc_a + so + kk * 2, desc_b + so + kk * 128, kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before this one is done with its stage
+      fence_regs(acc);
+      if (kt > 0) release((it - 1) % ST);
     }
-  }
-  cp_async_wait<0>();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release((it - 1) % ST);
 
-  __nv_bfloat16* ye = y + static_cast<long long>(e) * C * F;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+    // the epilogue: lane tig of a quad holds columns 2 tig, 2 tig + 1 of
+    // each 8-column block of its rows; a 4 x 4 transpose across the quad
+    // (two shfl.xor rounds) gives it all 8 columns of block 4 q + tig, so
+    // each lane stores 16 bytes and a warp 64 contiguous bytes per row
+    const int row0 = m0 + 64 * w + 16 * warp + grp;
+    bf16* ye = y + static_cast<long long>(e) * C * F;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int gm = m0 + wm + mt * 16 + grp + 8 * half;
-      if (gm >= C) continue;
+      const int r = row0 + 8 * half;
+      bf16* yr = ye + static_cast<long long>(r < C ? r : 0) * F;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int gn = n0 + wn + nt * 8 + 2 * tig;
-        if (gn + 1 < F) {
-          *reinterpret_cast<__nv_bfloat162*>(&ye[static_cast<long long>(gm) * F + gn]) =
-              __floats2bfloat162_rn(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        } else if (gn < F) {
-          ye[static_cast<long long>(gm) * F + gn] = __float2bfloat16(acc[mt][nt][2 * half]);
-        }
+      for (int q = 0; q < BN / 32; ++q) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = pack_bf16(acc[4 * (4 * q + j) + 2 * half], acc[4 * (4 * q + j) + 2 * half + 1]);
+        const uint4 out = quad_transpose(v, tig);
+        const int col = n0 + 8 * (4 * q + tig);
+        if (r < C && col < F) *reinterpret_cast<uint4*>(yr + col) = out;
       }
     }
   }
 }
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// an (expert, row, column) bf16 operand with unit column stride as a 3-d TMA
+// map (column, row, expert) of 64-column x box_rows boxes, 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int experts,
+              long long s_row, long long s_expert, int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(experts)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(2 * s_row),
+                           static_cast<cuuint64_t>(2 * s_expert)};
+  cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NC, int BN, int CL>
+int launch_bf16(const void* x, const void* w, void* y, int E, int C, int D, int F,
+                const long long* s, cudaStream_t stream) {
+  using G = Body<NC, BN, CL>;
+  CUtensorMap tx, tw;
+  if (!make_map(&tx, x, D, C, E, s[1], s[0], G::BM) || !make_map(&tw, w, F, D, E, s[4], s[3], 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups_c = ((C + G::BM - 1) / G::BM + CL - 1) / CL;
+  const int tiles_f = (F + BN - 1) / BN;
+  const long long groups = static_cast<long long>(E) * groups_c * tiles_f;
+  if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gmm_bf16_wgmma<NC, BN, CL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one CTA per SM, as many clusters as fit on the card at once
+  int dev = 0;
+  int sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sms / CL * CL);
+  cfg.blockDim = dim3(G::THREADS);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  int clusters = sms / CL;
+  if (CL > 1) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cfg.gridDim = dim3(CL * static_cast<int>(groups < clusters ? groups : clusters));
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<bf16*>(y), C, F, groups_c,
+                           tiles_f, static_cast<int>(groups), (D + BK - 1) / BK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 // ---- fp32 FMA (ibn_pointwise's tile loop with an expert index)
 constexpr int BM = 64;
@@ -310,26 +678,24 @@ extern "C" int gmm_launch(int dtype, const void* x, const void* w, void* y, int 
   const long long* s = strides;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const dim3 grid((C + MB - 1) / MB, (F + NB - 1) / NB, E);
-    const bool aligned16 = s[2] == 1 && s[5] == 1 && D % 8 == 0 && F % 8 == 0 &&
-                           s[0] % 8 == 0 && s[1] % 8 == 0 && s[3] % 8 == 0 && s[4] % 8 == 0 &&
-                           reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                           reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    if (!aligned16) return static_cast<int>(cudaErrorInvalidValue);
-    const int bytes = static_cast<int>(sizeof(__nv_bfloat16)) * STAGES * STAGE_ELEMS;
-    const cudaError_t err = cudaFuncSetAttribute(
-        gmm_bf16_async, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gmm_bf16_async<<<grid, MMA_THREADS, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), C, D, F, s[0], s[1], s[3], s[4]);
-  } else if (dtype == 0) {
+    // TMA: unit column strides, the others positive multiples of 16 bytes,
+    // 16-byte-aligned starts; F a multiple of 8 for the epilogue's stores
+    const bool tma = s[2] == 1 && s[5] == 1 && F % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(y) % 16 == 0;
+    const bool strides_ok = s[0] > 0 && s[1] > 0 && s[3] > 0 && s[4] > 0 && s[0] % 8 == 0 &&
+                            s[1] % 8 == 0 && s[3] % 8 == 0 && s[4] % 8 == 0;
+    if (!tma || !strides_ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (C <= 64) return wg::launch_bf16<1, 128, 1>(x, w, y, E, C, D, F, s, st);
+    return wg::launch_bf16<2, GMM_BN, GMM_CL>(x, w, y, E, C, D, F, s, st);
+  }
+  if (dtype == 0) {
     const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);
     gmm_f32_fma<<<grid, FMA_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
         C, D, F, s[0], s[1], s[2], s[3], s[4], s[5]);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

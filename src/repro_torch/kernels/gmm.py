@@ -7,16 +7,19 @@ bf16 (the same type), fp32 accumulation, y (E, C, F) in x's type. It is
 what the MoE layer's three expert products compute
 (``models.moe.expert_ffn``). One launch covers every expert. The kernel
 source is ``csrc/gmm.cu``; its header says what bounds it on the card and
-how it is laid out (bf16 on the tensor cores with ``mma.sync``, fp32 as
-fp32 FMAs).
+how it is laid out (bf16 on ``wgmma`` with TMA, warp-specialised and
+persistent, with a 64-row body for C <= 64; fp32 as fp32 FMAs).
 
 fp32 operands are read through their strides (any strides), without a
-copy. The bf16 body copies its tiles in 16-byte chunks: it takes operands
-with unit stride along the last axis, that axis a multiple of 8, the other
-strides multiples of 8 and a 16-byte-aligned start, which is what the MoE
-layer passes. ``launch`` copies any other bf16 operand into a zero-padded
+copy. The bf16 body reads its operands through TMA maps: it takes unit
+stride along the last axis, the other strides positive multiples of 8
+elements and a 16-byte-aligned start, which covers the MoE layer's buffers
+and views such as ``x[:, ::2]``; w's last axis (F) must also be a multiple
+of 8. ``launch`` copies any other bf16 operand into a zero-padded
 contiguous one first (the zeros add nothing to the products) and returns
-the unpadded columns.
+the unpadded columns. A fault of the bf16 body's barrier protocol traps
+after about 2 s instead of hanging the card, which ends the process's CUDA
+context.
 
 Build: at first use, ``kernels.build`` compiles the source into a shared
 library with a plain C interface under ``build/kernels/``, loaded with
@@ -53,14 +56,20 @@ def build() -> Path:
     return kbuild.build(SOURCE)[0]
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Loads a library built from ``csrc/gmm.cu`` (or a version of it) and
+    declares its C interface."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
+    lib.gmm_launch.restype = i32
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
-        lib.gmm_launch.restype = i32
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -83,10 +92,9 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.device != x.device or w.dtype != x.dtype:
         raise ValueError(f"w must match x ({x.dtype} on {x.device}); "
                          f"got {w.dtype} on {w.device}")
-    fp = f
-    if x.dtype == torch.bfloat16 and not (_fits_bf16_body(x) and _fits_bf16_body(w)):
-        d, fp = d + -d % 8, f + -f % 8
-        x, w = _padded(x, c, d), _padded(w, d, fp)
+    if x.dtype == torch.bfloat16:
+        x, w = _tma_operands(x, w)
+    fp = w.shape[2]
     y = torch.empty((e, c, fp), device=x.device, dtype=x.dtype)
     strides = (ctypes.c_longlong * 6)(*x.stride(), *w.stride())
     lib = _library()
@@ -100,17 +108,29 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y if fp == f else y[..., :f].contiguous()
 
 
+def _tma_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 body's operands: each as it is where a TMA map describes it
+    (and, for w, F is a multiple of 8), else a zero-padded contiguous copy
+    (8-aligned D for x, F for w). The kernel is given the unpadded D."""
+    if not _fits_bf16_body(x):
+        x = _padded(x, x.shape[1], x.shape[2] + -x.shape[2] % 8)
+    if not (_fits_bf16_body(w) and w.shape[2] % 8 == 0):
+        w = _padded(w, w.shape[1], w.shape[2] + -w.shape[2] % 8)
+    return x, w
+
+
 def _fits_bf16_body(t: torch.Tensor) -> bool:
-    """Whether the bf16 body reads ``t`` (3-d) as it is: unit stride along
-    the last axis, that axis a multiple of 8, the other strides multiples of
-    8 and the start 16-byte aligned."""
-    return (t.stride(2) == 1 and t.shape[2] % 8 == 0 and t.stride(0) % 8 == 0
-            and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0)
+    """Whether a TMA map describes ``t`` (3-d) as it is: unit stride along
+    the last axis, the other strides positive multiples of 8 elements (16
+    bytes) and the start 16-byte aligned."""
+    return (t.stride(2) == 1 and all(s > 0 and s % 8 == 0 for s in t.stride()[:2])
+            and t.data_ptr() % 16 == 0)
 
 
 def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """A new contiguous (E, rows, cols) copy of ``t`` with zeros past its
-    edges (a fresh allocation, so its start is 16-byte aligned)."""
+    edges (a fresh allocation, so its start is 16-byte aligned; cols is a
+    multiple of 8, so its strides are too)."""
     out = t.new_zeros((t.shape[0], rows, cols))
     out[:, :t.shape[1], :t.shape[2]] = t
     return out

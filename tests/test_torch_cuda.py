@@ -22,7 +22,7 @@ from repro_torch.kernels import ibn_conv, ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
-from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.models import api, moe, transformer  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SHAPES = [
@@ -305,6 +305,11 @@ def test_ssd_scan_refuses_what_it_cannot_run(monkeypatch):
 GMM_SHAPES = [
     (4, 64, 32, 48), (2, 100, 70, 30), (8, 128, 256, 128), (1, 8, 8, 8), (3, 129, 33, 257),
     (4, 688, 2048, 1408), (4, 688, 1408, 2048), (60, 32, 2048, 1408),
+    # the bf16 body's edges: C on both sides of its 64-row body and of one and
+    # two 128-row tiles, and 8192; D off its 64-wide K steps; F under one
+    # 256-wide tile; 60 experts of 8 rows, many tiles per CTA
+    (3, 1, 256, 1408), (3, 33, 72, 256), (2, 64, 1000, 1408), (2, 65, 2048, 72),
+    (2, 129, 8, 1408), (2, 8192, 2048, 1408), (60, 8, 2048, 1408),
 ]
 # relative to max |plain value|: fp32 sums in another order; bf16 rounds the
 # output to 8 bits of mantissa
@@ -353,6 +358,30 @@ def test_gmm_takes_strided_views_and_refuses_what_it_cannot_run(dtype, monkeypat
     monkeypatch.setitem(kbuild.DEVICES, x.device.index, ((8, 0), 132))
     with pytest.raises(RuntimeError, match="capability 8.0"):
         ops.gmm(x, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tokens", [8, 300])
+def test_gmm_on_the_buffers_moe_dispatch_builds(n_tokens):
+    """ops.gmm on the (E, C, D) buffer that moe.dispatch builds, read as it
+    is: at 8 tokens the 64-row body (C 16), at 300 the 128-row tiles (C 600,
+    five of them, so one cluster's second CTA has no rows)."""
+    _need_sm90()
+    cfg = _family_cfg("moe")
+    rng = np.random.default_rng(11)
+    x2d = torch.from_numpy(rng.normal(size=(n_tokens, cfg.d_model)).astype(np.float32)).cuda()
+    wr = torch.from_numpy(rng.normal(size=(cfg.d_model, cfg.num_experts)).astype(np.float32))
+    _, top_e, _ = moe.route(x2d, wr.cuda(), cfg)
+    cap = moe.capacity_for(n_tokens, cfg)
+    buf, _, _ = moe.dispatch(x2d.bfloat16(), top_e, cfg.num_experts, cap, 0, cfg.num_experts)
+    w = torch.from_numpy(rng.normal(size=(cfg.num_experts, cfg.d_model, cfg.moe_d_ff))
+                         .astype(np.float32)).cuda().bfloat16()
+    assert buf.shape == (cfg.num_experts, cap, cfg.d_model) and tgmm._fits_bf16_body(buf)
+    before = tgmm.LAUNCHES
+    got = ops.gmm(buf, w)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES == before + 1
+    assert _rel_to_max(got, gmm_ref(buf, w)) < GMM_TOL["bfloat16"]
 
 
 def _family_cfg(family):

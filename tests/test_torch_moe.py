@@ -100,6 +100,28 @@ def test_gmm_pads_what_the_bf16_body_cannot_read(e, c, d, f):
     assert tgmm._fits_bf16_body(fits) and not tgmm._fits_bf16_body(fits[:, :, 1:9])
 
 
+@pytest.mark.parametrize("e,c,d,f", [(3, 45, 40, 72), (2, 33, 1000, 1408), (60, 8, 64, 256)])
+def test_gmm_reads_tma_describable_views_as_they_are(e, c, d, f):
+    """The bf16 body reads x[:, ::2] and contiguous operands through its TMA
+    maps without a copy; a transposed w, and one whose F is not a multiple of
+    8, are copied into zero-padded contiguous operands."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(e, 2 * c, d)).astype(np.float32)).bfloat16()[:, ::2]
+    w = torch.from_numpy(rng.normal(size=(e, d, f)).astype(np.float32)).bfloat16()
+    xs, ws = tgmm._tma_operands(x, w)
+    assert xs.data_ptr() == x.data_ptr() and ws.data_ptr() == w.data_ptr()
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)  # unit stride along D
+    narrow = w[:, :, :f - 3]
+    for other in (wt, narrow):
+        xs, ws = tgmm._tma_operands(x, other)
+        assert xs.data_ptr() == x.data_ptr() and ws.is_contiguous()
+        assert ws.shape == (e, d, other.shape[2] + -other.shape[2] % 8)
+        assert torch.equal(ws[..., :other.shape[2]], other) and not ws[..., other.shape[2]:].any()
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # unit stride along C
+    xs, _ = tgmm._tma_operands(xt, w)
+    assert xs.is_contiguous() and torch.equal(xs[..., :d], xt) and not xs[..., d:].any()
+
+
 def test_capacity_matches_reference():
     for n in (1, 7, 512, 2048, 4096, 4097, 8192, 12345):
         for cfg in (CFG, ref_qwen2_moe.CONFIG):
