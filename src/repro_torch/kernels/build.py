@@ -35,15 +35,6 @@ def _nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(source: Path, out: Path, *extra: str) -> list[str]:
-    """The ``nvcc`` command that builds ``source`` into the shared library
-    ``out`` for sm_90a, printing ptxas's report; ``extra`` flags (such as
-    ``-D`` definitions) go before the output."""
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *extra, "-o", str(out),
-            str(source)]
-
-
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
@@ -60,8 +51,11 @@ def build(*sources: Path) -> list[Path]:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            proc = subprocess.Popen(nvcc_command(source, tmp), stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-o", str(tmp), str(source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
             pending.append((source, out, tmp, proc))
         for source, out, tmp, proc in pending:
             stdout, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)

@@ -59,9 +59,8 @@
 //         Every mbarrier wait traps after about 2 s (mbar_wait) instead of
 //         spinning on a fault of the protocol: the trap ends the process's
 //         CUDA context (every later CUDA call of that process fails), not
-//         one launch. GMM_BN and GMM_CL below set the C > 64 body's tile
-//         width and cluster; the shipped values won the comparisons in
-//         PERF.md;
+//         one launch. The tile width and cluster of the C > 64 body won
+//         the comparisons in PERF.md (128 wide, and no cluster, lost);
 //   fp32: ibn_pointwise's 64 x 64 tile of fp32 FMAs (4 x 4 outputs per
 //         thread, K steps of 16), with the expert as the grid's z index.
 //         Operands are read through their (expert, row, column) strides, so
@@ -77,10 +76,10 @@
 // first version of this kernel (mma.sync m16n8k16, 128 x 128 tiles copied
 // with cp.async through a 3-stage ring, a block per tile) took 1.13 ms and
 // 0.18 ms there; this one about 0.39 ms and 0.13 ms, against 0.35 ms and
-// 0.12 ms for torch.bmm (gmm_versions.py; PERF.md). What bounds the prefill
-// products now: a build that skips the output stores is 3% faster, and the
-// 128 x 256 tiles compute 768 x 1536 outputs of each expert's 688 x 1408 (F =
-// 1408 is 5.5 tiles) for 82% useful work.
+// 0.12 ms for torch.bmm (PERF.md). What bounds the prefill products now: a
+// build that skips the output stores is 3% faster, and the 128 x 256 tiles
+// compute 768 x 1536 outputs of each expert's 688 x 1408 (F = 1408 is 5.5
+// tiles) for 82% useful work.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -95,12 +94,6 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 
-#ifndef GMM_BN
-#define GMM_BN 256  // the C > 64 body's tile width (PERF.md compares 128)
-#endif
-#ifndef GMM_CL
-#define GMM_CL 2  // and its cluster: CTAs along C that share w's boxes (PERF.md compares 1)
-#endif
 constexpr int BK = 64;             // K per stage: a 128-byte row of bf16, the swizzle span
 constexpr int PANEL = 64 * 128;    // bytes of a 64 x 64 box in the 128-byte swizzle
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
@@ -109,6 +102,7 @@ constexpr int SMEM_EXTRA = 1024 + 256;  // alignment to 1024 bytes, barriers
 // the loader gives up what the consumers take
 constexpr int LOADER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
+constexpr int MAX_DEVICES = 64;  // devices a process launches on, for launch_bf16's cache
 
 // NC consumer warpgroups of 64 rows x BN, in clusters of CL CTAs along C;
 // as many stages as shared memory holds
@@ -329,9 +323,9 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  static_assert(N == 128 || N == 256, "wgmma is written out for n128 and n256 only");
   if constexpr (N == 128) wgmma_n128(d, a, b, accumulate);
   if constexpr (N == 256) wgmma_n256(d, a, b, accumulate);
 }
@@ -533,32 +527,42 @@ int launch_bf16(const void* x, const void* w, void* y, int E, int C, int D, int 
   const long long groups = static_cast<long long>(E) * groups_c * tiles_f;
   if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = gmm_bf16_wgmma<NC, BN, CL>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // one CTA per SM, as many clusters as fit on the card at once
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sms / CL * CL);
   cfg.blockDim = dim3(G::THREADS);
   cfg.dynamicSmemBytes = G::SMEM;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = CL > 1 ? 1 : 0;
-  int clusters = sms / CL;
-  if (CL > 1) {
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  // the clusters that fit on each device at once (one CTA per SM), found at
+  // the first launch there together with the shared-memory limit, so the
+  // model's launches (72 a prefill, 72 a decode step) ask the driver nothing
+  // more; 0: not asked yet
+  static int clusters_on[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (clusters_on[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int clusters = sms / CL;
+    if (CL > 1) {
+      cfg.gridDim = dim3(clusters * CL);
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    clusters_on[dev] = clusters;
   }
+  const int clusters = clusters_on[dev];
   cfg.gridDim = dim3(CL * static_cast<int>(groups < clusters ? groups : clusters));
   err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<bf16*>(y), C, F, groups_c,
                            tiles_f, static_cast<int>(groups), (D + BK - 1) / BK);
@@ -688,7 +692,7 @@ extern "C" int gmm_launch(int dtype, const void* x, const void* w, void* y, int 
                             s[1] % 8 == 0 && s[3] % 8 == 0 && s[4] % 8 == 0;
     if (!tma || !strides_ok) return static_cast<int>(cudaErrorInvalidValue);
     if (C <= 64) return wg::launch_bf16<1, 128, 1>(x, w, y, E, C, D, F, s, st);
-    return wg::launch_bf16<2, GMM_BN, GMM_CL>(x, w, y, E, C, D, F, s, st);
+    return wg::launch_bf16<2, 256, 2>(x, w, y, E, C, D, F, s, st);
   }
   if (dtype == 0) {
     const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);

@@ -56,20 +56,14 @@ def build() -> Path:
     return kbuild.build(SOURCE)[0]
 
 
-def bind(path: Path) -> ctypes.CDLL:
-    """Loads a library built from ``csrc/gmm.cu`` (or a version of it) and
-    declares its C interface."""
-    lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
-    lib.gmm_launch.restype = i32
-    return lib
-
-
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = bind(build())
+        lib = ctypes.CDLL(str(build()))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
+        lib.gmm_launch.restype = i32
+        _lib = lib
     return _lib
 
 
