@@ -13,8 +13,16 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                EfficientNet-B0 (SE, swish) and the manual EdgeTPU model at
                224 px, batch 8, and of the search's MobileNetV2 space at the
                proxy's 32 px, batch 64, holds the kernel's forward and backward
-               (dx, dw, db) against the plain PyTorch version on the card, and
-               times kernel, plain version and ``torch.addmm`` + act;
+               (dx, dw, db) against the plain PyTorch version on the card, its
+               edges (K 960 and dw's K 16384 split over a cluster, ragged M and
+               N, transposed views, bf16) with two controls that the limit
+               must fail (a cluster rank's partial dropped, the last K step
+               unloaded), and
+               times kernel, plain version and ``torch.addmm`` + act as the host
+               issues them (CUDA events around 20 calls), then on the device
+               alone (CUDA graphs of 20 calls, in turns) the forward, dx and dw
+               products against ``torch.addmm`` / ``torch.mm``, and the
+               wrapper's host µs per call;
 3. model     — the same three models at full width, 1000 classes, 224 px: the
                card's logits against the port's CPU forward on the same params,
                then 5 SGD steps of ``proxy.train_step`` at batch 16;
@@ -76,7 +84,8 @@ flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
 to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
-``--json PATH`` also writes every per-shape measurement to PATH.
+``--json PATH`` also writes every per-shape measurement to PATH;
+``--phases kernel,profile`` runs those phases alone (no kernels line).
 """
 from __future__ import annotations
 
@@ -188,6 +197,8 @@ SSM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 # serve_moe: decode vs forward at 8 x 256 tokens, where capacity_for never
 # drops (8 x 256 x 4 assignments <= 8192)
 MOE_CHECK_LEN = 256
+# the device symbol of K1's launches (ibn_pw<...>)
+K1_SYMBOL = "ibn_pw"
 KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
            "ssd_scan": ssd_scan, "gmm": gmm}
 
@@ -223,6 +234,57 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, calls: int = 20, rounds: int = 3) -> list[float]:
+    """Device time per call of each of ``fns``, with the host out of the
+    reading: each is captured ``calls`` times into a CUDA graph, and the
+    graphs are replayed in turns (0, 1, .., 1, 0, ...) ``rounds`` times each,
+    timed by CUDA events around each replay; mean ms per call. L2 stays warm
+    between calls, as in ``time_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            for _ in range(3):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for fn in fns:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    total = [0.0] * len(fns)
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[i].replay()
+            end.record()
+            end.synchronize()
+            total[i] += start.elapsed_time(end)
+    del graphs
+    return [t / (rounds * calls) for t in total]
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call of ``fn``: the time to issue ``calls`` calls back to
+    back (the device finishes each small call faster than the host issues
+    the next, so the queue never fills)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
 
 
 def bound_parts_ms(n: int, cin: int, cout: int, dtype=torch.float32) -> tuple[float, float]:
@@ -274,15 +336,30 @@ def check_shape(n, cin, cout, act, dtype, gen, timed: bool) -> dict:
     fwd_abs, fwd_rel = rel_err(y, y_ref)
 
     leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    ibn_conv.ibn_pointwise(*leaves, act=act).backward(dy)
+    y_k = ibn_conv.ibn_pointwise(*leaves, act=act)
+    y_k.backward(dy)
     plain = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    ibn_pointwise_ref(*plain, act).backward(dy)
+    if act == "relu":
+        # relu's gradient is dy where y > 0, read from each version's own y:
+        # the plain gradient is taken with the kernel's mask (the products
+        # are what is held), and a pre-activation the two versions put on
+        # either side of 0 must lie within the forward's limit of 0
+        z_ref = ibn_pointwise_ref(x, w, b, "none").float()
+        flips = (y_k.detach() > 0) != (z_ref > 0)
+        scale = max(1.0, z_ref.abs().max().item())
+        if flips.any() and z_ref[flips].abs().max().item() > tol * scale:
+            raise AssertionError(f"ibn_pointwise's relu mask differs away from 0 at "
+                                 f"{(n, cin, cout)}")
+        (ibn_pointwise_ref(*plain, "none") * (y_k.detach() > 0)).backward(dy)
+    else:
+        flips = torch.zeros(())
+        ibn_pointwise_ref(*plain, act).backward(dy)
     torch.cuda.synchronize()
     bwd = [rel_err(a.grad, p.grad)[1] for a, p in zip(leaves, plain)]
     rec = {"n": n, "cin": cin, "cout": cout, "act": act, "dtype": str(dtype)[6:],
            "fwd_max_abs_err": fwd_abs, "fwd_rel_err": fwd_rel,
            "dx_rel_err": bwd[0], "dw_rel_err": bwd[1], "db_rel_err": bwd[2],
-           "tol": tol}
+           "relu_mask_flips": int(flips.sum().item()), "tol": tol}
     if max(fwd_rel, *bwd) > tol:
         raise AssertionError(f"ibn_pointwise disagrees with its plain version: {rec}")
     if timed:
@@ -295,6 +372,127 @@ def check_shape(n, cin, cout, act, dtype, gen, timed: bool) -> dict:
         rec["bound_by"] = ("bytes" if rec["bound_bytes_ms"] >= rec["bound_ops_ms"]
                            else "operations")
     return rec
+
+
+def product_times(n: int, cin: int, cout: int, gen) -> dict:
+    """Device-only ms of the three products of one 1x1 conv, fp32, for the
+    kernel and for one PyTorch call, in turns (``graph_ms``): the forward
+    ``x @ w + b`` (``torch.addmm``), and the backward's ``dx = dz @ wᵀ`` and
+    ``dw = xᵀ @ dz`` (``torch.mm``), on the transposed views the backward
+    passes; with each product's bound (M, K, N)."""
+    dev = "cuda"
+    x = torch.randn((n, cin), generator=gen, device=dev)
+    w = torch.randn((cin, cout), generator=gen, device=dev) / math.sqrt(cin)
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    dz = torch.randn((n, cout), generator=gen, device=dev)
+    products = {
+        "fwd": ((n, cin, cout), lambda: ibn_conv.launch(x, w, b, "none"),
+                lambda: torch.addmm(b, x, w)),
+        "dx": ((n, cout, cin), lambda: ibn_conv.launch(dz, w.t(), None, "none"),
+               lambda: torch.mm(dz, w.t())),
+        "dw": ((cin, n, cout), lambda: ibn_conv.launch(x.t(), dz, None, "none"),
+               lambda: torch.mm(x.t(), dz)),
+    }
+    out = {}
+    for name, ((m, k, nn), kern, lib) in products.items():
+        if name == "fwd":
+            kern_ms, lib_ms, plain_ms = graph_ms(
+                [kern, lib, lambda: ibn_pointwise_ref(x, w, b, "none")])
+        else:
+            (kern_ms, lib_ms), plain_ms = graph_ms([kern, lib]), None
+        nbytes = 4 * (m * k + k * nn + m * nn + (nn if name == "fwd" else 0))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2.0 * m * k * nn / PEAK_FLOP_PER_S[torch.float32] * 1e3
+        out[name] = {"mkn": (m, k, nn), "ms": kern_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms), "bound_bytes_ms": bytes_ms,
+                     "bound_ops_ms": ops_ms}
+    return out
+
+
+# K1's edges, (M, K, N, how a and b lie): K 960 split across a cluster, the
+# backward's dw at K 16384 (xᵀ @ dz) and its dx (dz @ wᵀ), ragged M and N,
+# one row, and every layout of the two operands
+K1_EDGES = [(64, 960, 160, "x", "w"), (64, 960, 320, "x", "w"), (16, 16384, 48, "xT", "w"),
+            (48, 16384, 96, "xT", "w"), (16384, 48, 16, "x", "wT"), (77, 130, 33, "x", "w"),
+            (1000, 70, 50, "xT", "wT"), (1, 96, 1280, "x", "w"), (131, 4096, 45, "x", "wT")]
+
+
+def k1_edges(card: str) -> dict:
+    """K1 against its plain version at ``K1_EDGES`` in fp32 and bf16, with
+    the operands as they lie (``xT``/``wT``: transposed views of contiguous
+    tensors, as the backward passes them), and two controls that the limit
+    must fail on the split-K products: one cluster rank's partial left out of
+    the sum, and the last K step of the last rank left unloaded."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for m, k, n, la, lb in K1_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn((k, m) if la == "xT" else (m, k), generator=gen, device="cuda")
+            b = torch.randn((n, k) if lb == "wT" else (k, n), generator=gen, device="cuda")
+            a = (a.t() if la == "xT" else a).to(dtype)
+            b = (b.t() if lb == "wT" else b).to(dtype) / math.sqrt(k)
+            bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(dtype)
+            want = ibn_pointwise_ref(a, b, bias, "relu")
+            got = ibn_conv.launch(a, b, bias, "relu")
+            torch.cuda.synchronize()
+            err = rel_err(got, want)[1]
+            _, splits, k_chunk = ibn_conv.plan(m, n, k, dtype, kbuild.device_info(0)[1],
+                                               ibn_conv._max_cluster(0))
+            rec = {"mkn": (m, k, n), "layout": (la, lb), "dtype": str(dtype)[6:],
+                   "splits": splits, "k_chunk": k_chunk, "rel_err": err, "tol": TOL[dtype]}
+            if err > TOL[dtype]:
+                raise AssertionError(f"ibn_pointwise disagrees with its plain version: {rec}")
+            if splits > 1:
+                last = (k - 1) // k_chunk
+                rec["controls"] = {
+                    "rank_dropped": rel_err(ibn_conv.launch(a, b, bias, "relu", drop_rank=last),
+                                            want)[1],
+                    "last_k_step_unloaded": rel_err(
+                        ibn_conv.launch(a, b, bias, "relu", drop_last=last), want)[1]}
+                if not min(rec["controls"].values()) > TOL[dtype]:
+                    raise AssertionError(f"the limit passes a control: {rec}")
+            out.append(rec)
+    split = [r for r in out if "controls" in r]
+    print(f"kernel: {len(out)} edge checks (K 960 and dw K 16384 split over clusters of "
+          f"{sorted({r['splits'] for r in split})}, ragged M and N, xT and wT views, fp32 and "
+          f"bf16): worst {max(r['rel_err'] / r['tol'] for r in out):.3g} of the limit; "
+          f"controls fail it by at least "
+          f"{min(min(r['controls'].values()) / r['tol'] for r in split):.3g}x  [{card}]")
+    return {"records": out}
+
+
+def device_phase(card: str, full, search, per_model) -> dict:
+    """K1 and one PyTorch call on the device alone (CUDA graphs of 20
+    calls, in turns), per product, summed over the search's 36 shapes and
+    over the full-width models' shapes; and the wrapper's host µs per call."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    per_shape = {shape: product_times(*shape, gen) for shape in sorted(set(full) | set(search))}
+    sums = {}
+    for label, shapes in (("search", search), *per_model.items()):
+        sums[label] = {p: {k: sum(per_shape[s][p][k] for s in shapes)
+                           for k in ("ms", "library_ms", "bound_ms", "bound_bytes_ms",
+                                     "bound_ops_ms")}
+                       for p in ("fwd", "dx", "dw")}
+        sums[label]["fwd"]["plain_ms"] = sum(per_shape[s]["fwd"]["plain_ms"] for s in shapes)
+        t = sums[label]
+        print(f"kernel: device only (CUDA graphs of 20 calls, kernel and library in turns), "
+              f"{label} {len(shapes)} shapes, fp32, ms summed: "
+              + "; ".join(f"{p} kernel {t[p]['ms']:.4f} vs {'addmm' if p == 'fwd' else 'mm'} "
+                          f"{t[p]['library_ms']:.4f} (bound {t[p]['bound_ms']:.4f})"
+                          for p in ("fwd", "dx", "dw")) + f"  [{card}]")
+    for shape in search:
+        r = per_shape[shape]
+        print(f"kernel:   search {shape} device ms: "
+              + ", ".join(f"{p} {r[p]['ms']:.4f} / {r[p]['library_ms']:.4f} "
+                          f"(bound {r[p]['bound_ms']:.4f})" for p in ("fwd", "dx", "dw")))
+    x = torch.randn((search[0][0], search[0][1]), device="cuda")
+    w = torch.randn((search[0][1], search[0][2]), device="cuda")
+    host = {"kernel_us": host_us(lambda: ibn_conv.launch(x, w, None, "none")),
+            "mm_us": host_us(lambda: torch.mm(x, w))}
+    print(f"kernel: host µs per call at {search[0]}: the wrapper (ibn_conv.launch) "
+          f"{host['kernel_us']:.2f}, torch.mm {host['mm_us']:.2f}  [{card}]")
+    return {"per_shape": {str(k): v for k, v in per_shape.items()}, "sums": sums,
+            "host_us": host}
 
 
 def kernel_phase(card: str) -> dict:
@@ -319,9 +517,11 @@ def kernel_phase(card: str) -> dict:
                                                         gen, timed=(act == "none"))
     worst = max(max(r["fwd_rel_err"], r["dx_rel_err"], r["dw_rel_err"], r["db_rel_err"])
                 / r["tol"] for r in records.values())
+    flips = sum(r["relu_mask_flips"] for r in records.values())
     print(f"kernel: {len(records)} checks at {len(full)} full-width shapes (224 px, "
           f"batch 8) and {len(search)} search shapes (32 px, batch 64), forward and "
-          f"backward; worst error {worst:.3g} of its tolerance  [{card}]")
+          f"backward; worst error {worst:.3g} of its tolerance; {flips} relu outputs on the "
+          f"other side of 0 from the plain version's, each within the limit of 0  [{card}]")
 
     def totals(shapes):
         rs = [records[(s, "none", "fp32")] for s in shapes]
@@ -346,12 +546,14 @@ def kernel_phase(card: str) -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
     t = totals(search)
     summary["search_shapes"] = t
-    print(f"kernel: the {len(search)} search shapes, one forward each: kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, addmm {t['library_ms']:.4f}"
-          f" ms, bound {t['bound_ms']:.4f} ms  [{card}]")
+    print(f"kernel: the {len(search)} search shapes, one forward each, host-issued (CUDA "
+          f"events around 20 calls): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"addmm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms  [{card}]")
     fp32_main = [records[(s, a, "fp32")] for s in search for a in ("none", "relu")]
+    edges = k1_edges(card)
+    device = device_phase(card, full, search, per_model)
     return {"records": list(records.values()), "summary": summary,
-            "search_totals": t,
+            "search_totals": t, "device": device, "edges": edges,
             "max_abs_err": max(r["fwd_max_abs_err"] for r in fp32_main),
             "max_rel_err_fwd": max(r["fwd_rel_err"] for r in records.values()),
             "max_rel_err_bwd": max(max(r["dx_rel_err"], r["dw_rel_err"], r["db_rel_err"])
@@ -455,9 +657,11 @@ def profile_phase(card: str) -> dict:
         torch.cuda.synchronize()
 
     run()  # warm-up
+    before = ibn_conv.LAUNCHES
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = (ibn_conv.LAUNCHES - before) / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     per_kernel = {}
@@ -468,7 +672,7 @@ def profile_phase(card: str) -> dict:
                 us = e.self_cuda_time_total
             per_kernel[e.key] = us / 1e3 / steps
     device_ms = sum(per_kernel.values())
-    ibn_ms = sum(v for k, v in per_kernel.items() if "pw_gemm" in k or "splitk_epilogue" in k)
+    ibn_ms = sum(v for k, v in per_kernel.items() if K1_SYMBOL in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     if device_ms == 0.0:
         print(f"profile: train_step {wall_ms:.2f} ms; device time not measured (the "
@@ -476,12 +680,12 @@ def profile_phase(card: str) -> dict:
     else:
         print(f"profile: train_step (mobilenet_v2, 32 px, batch 64) {wall_ms:.2f} ms wall, "
               f"{device_ms:.3f} ms on the device ({device_ms / wall_ms:.1%} busy), "
-              f"ibn_pointwise {ibn_ms:.3f} ms ({ibn_ms / device_ms:.1%} of device time), "
-              f"{len(per_kernel)} kernel names  [{card}]")
+              f"ibn_pointwise {ibn_ms:.3f} ms ({ibn_ms / device_ms:.1%} of device time, "
+              f"{launches:.0f} launches per step), {len(per_kernel)} kernel names  [{card}]")
         for name, ms in top:
             print(f"profile:   {ms:.4f} ms/step  {name[:90]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "ibn_ms": ibn_ms,
-            "per_kernel_ms": per_kernel}
+            "launches_per_step": launches, "per_kernel_ms": per_kernel}
 
 
 def attention_bound_parts_ms(b, h, kv, sq, skv, hd, causal, dtype) -> tuple[float, float]:
@@ -1368,10 +1572,22 @@ def llm_phase(card: str) -> dict:
     return out
 
 
+PHASES = {"kernel": kernel_phase, "model": model_phase, "search": search_phase,
+          "profile": profile_phase, "attention": attention_phase, "ssd": ssd_phase,
+          "gmm": gmm_phase, "serve": serve_phase, "serve_ssm": serve_ssm_phase,
+          "serve_moe": serve_moe_phase, "llm": llm_phase}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all); with fewer than "
+                         "all, no kernels line and no final ok line are printed")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases takes {','.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
               file=sys.stderr)
@@ -1400,23 +1616,25 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         return result
 
-    kern = timed("kernel", kernel_phase)
-    model = timed("model", model_phase)
-    search = timed("search", search_phase)
-    prof = timed("profile", profile_phase)
-    attn = timed("attention", attention_phase)
-    ssd = timed("ssd", ssd_phase)
-    gmm_res = timed("gmm", gmm_phase)
-    serve = timed("serve", serve_phase)
-    torch.cuda.empty_cache()
-    serve_ssm = timed("serve_ssm", serve_ssm_phase)
-    torch.cuda.empty_cache()
-    serve_moe = timed("serve_moe", serve_moe_phase)
-    torch.cuda.empty_cache()
-    llm = timed("llm", llm_phase)
+    res = {}
+    for name in PHASES:
+        if name in phases:
+            res[name] = timed(name, PHASES[name])
+            torch.cuda.empty_cache()
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps({"card": card, **res, "phase_s": phase_s},
+                                              indent=1, default=str))
+    if len(res) < len(PHASES):
+        print(f"chip_smoke: ran {','.join(res)} only; no kernels line")
+        return 0
+    kern, search, prof, attn, ssd, gmm_res, serve, serve_ssm, serve_moe = (
+        res[k] for k in ("kernel", "search", "profile", "attention", "ssd", "gmm", "serve",
+                         "serve_ssm", "serve_moe"))
 
     t = kern["search_totals"]
+    dev = kern["device"]["sums"]["search"]
     kernels = {"kernels": [{
         "name": "ibn_pointwise",
         "route": "cuda",
@@ -1424,11 +1642,20 @@ def main() -> int:
         "replaces": "src/repro/kernels/ibn_conv.py:49",
         "launches": search["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
+        "ms": dev["fwd"]["ms"],
+        "plain_ms": dev["fwd"]["plain_ms"],
+        "bound_ms": dev["fwd"]["bound_ms"],
+        "bound_by": ("bytes" if dev["fwd"]["bound_bytes_ms"] >= dev["fwd"]["bound_ops_ms"]
+                     else "operations"),
+        "library_ms": dev["fwd"]["library_ms"],
+        "timing": "device only: the 36 search shapes' forward, CUDA graphs of 20 calls; "
+                  "library torch.addmm",
+        "host_issued_ms": t["ms"],
+        "host_issued_library_ms": t["library_ms"],
+        "backward_ms": {p: dev[p]["ms"] for p in ("dx", "dw")},
+        "backward_library_ms": {p: dev[p]["library_ms"] for p in ("dx", "dw")},
+        "launches_per_train_step": prof["launches_per_step"],
+        "device_ms_per_train_step": prof["ibn_ms"],
         "max_rel_err_fwd": kern["max_rel_err_fwd"],
         "max_rel_err_bwd": kern["max_rel_err_bwd"],
     }, {
@@ -1478,12 +1705,8 @@ def main() -> int:
                      for name, r in gmm_res["main"].items()},
     }]}
     if args.json:
-        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.json).write_text(json.dumps(
-            {"card": card, "kernel": kern, "model": model, "search": search,
-             "profile": prof, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
-             "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm,
-             "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
+        Path(args.json).write_text(json.dumps({"card": card, **res, "phase_s": phase_s,
+                                               "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

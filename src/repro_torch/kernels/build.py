@@ -3,14 +3,16 @@
 Each source under ``csrc/`` has a plain C interface. At first use ``nvcc``
 compiles it for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the repository root (one file per source digest), which the kernel's module
-loads with ``ctypes``. ``build`` starts one ``nvcc`` per source that is not
-built yet, all at once, and waits for them all. Nothing is built when a
+loads with ``ctypes``; the digest covers the local headers the source
+includes (``csrc/hopper.cuh``). ``build`` starts one ``nvcc`` per source that
+is not built yet, all at once, and waits for them all. Nothing is built when a
 module is imported.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,9 +37,31 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _local_includes(source: Path) -> list[Path]:
+    """The headers that ``source`` includes with ``#include "..."`` (the
+    port's own, found beside the file that includes them), and theirs, each
+    once, in order."""
+    seen: list[Path] = []
+    todo = [source]
+    while todo:
+        including = todo.pop(0)
+        text = including.read_text()
+        for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', text, flags=re.MULTILINE):
+            header = (including.parent / name).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """The library built from ``source``: its name carries a digest of the
+    source and of every local header it includes, so editing either
+    rebuilds it instead of loading a stale one."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in _local_includes(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(*sources: Path) -> list[Path]:

@@ -19,8 +19,13 @@ library with a plain C interface under ``build/kernels/``, loaded with
 
 On a CPU tensor ``flash_attention`` takes the plain version
 (``ref.flash_attention_ref``); a CUDA tensor launches the kernel or raises.
-There is no gradient: the TPU kernel has no VJP, so backward raises.
 ``LAUNCHES`` counts kernel launches.
+
+Gradient (``FlashAttention``): the TPU kernel has no VJP, and the reference's
+models differentiate their jnp attention, the same function. So backward
+recomputes the plain version from the saved q, k and v, on their device, and
+takes autograd's VJP of it. The forward on the card still launches the
+kernel; a backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -118,22 +123,25 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) with no gradient."""
+    """The kernel (or, on the CPU, the plain version), with the plain
+    version's VJP as its gradient (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return ref.flash_attention_ref(q, k, v, causal=causal)
         return launch(q, k, v, causal=causal)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash_attention has no gradient: the TPU kernel it ports has no VJP")
+    def backward(ctx, do):
+        return ref.vjp(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=ctx.causal),
+                       ctx.saved_tensors, ctx.needs_input_grad[:3], (do,)) + (None,)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, H, Sq, hd), k and v (B, KV, Skv, hd) -> (B, H, Sq, hd) in q's
-    dtype."""
+    dtype, differentiable in q, k and v."""
     return FlashAttention.apply(q, k, v, causal)

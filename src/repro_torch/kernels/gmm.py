@@ -26,8 +26,15 @@ library with a plain C interface under ``build/kernels/``, loaded with
 ``ctypes``. Nothing is built when the module is imported.
 
 On a CPU tensor ``gmm`` takes the plain version (``ref.gmm_ref``); a CUDA
-tensor launches the kernel or raises. There is no gradient: the TPU kernel
-has no VJP, so backward raises. ``LAUNCHES`` counts kernel launches.
+tensor launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+
+Gradient (``Gmm``): the TPU kernel has no VJP, and the reference's MoE
+layer differentiates its einsums, whose gradient is two more grouped
+products: ``dx[e] = dy[e] @ w[e]ᵀ`` and ``dw[e] = x[e]ᵀ @ dy[e]``, each in
+the operand's type with fp32 accumulation. On the card both are launches of
+the same kernel on transposed views (``launch`` copies a bf16 view that a
+TMA map cannot describe), so a product that needs both grads counts three
+launches; on the CPU they take the plain version.
 """
 from __future__ import annotations
 
@@ -130,20 +137,32 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One grouped product: the plain version for a CPU tensor, the kernel
+    else."""
+    if x.device.type == "cpu":
+        return ref.gmm_ref(x, w)
+    return launch(x, w)
+
+
 class Gmm(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) with no gradient."""
+    """``x @ w`` per expert with every product, forward and backward, on the
+    kernel (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, w):
-        if x.device.type == "cpu":
-            return ref.gmm_ref(x, w)
-        return launch(x, w)
+        ctx.save_for_backward(x, w)
+        return _product(x, w)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("gmm has no gradient: the TPU kernel it ports has no VJP")
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = _product(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        dw = _product(x.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype."""
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype, differentiable
+    in x and w."""
     return Gmm.apply(x, w)

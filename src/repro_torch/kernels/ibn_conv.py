@@ -5,7 +5,18 @@ Replaces ``repro/kernels/ibn_conv.py::ibn_pointwise`` (the Pallas TPU
 kernel ``_pw_kernel``): ``y = act(x @ w + b)``, x (N, Cin), w (Cin, Cout),
 b (Cout,), fp32 accumulation, bias and act in the epilogue, output in
 ``x.dtype``. The kernel source is ``csrc/ibn_pointwise.cu``; its header says
-what bounds it on the card and how it is laid out.
+what bounds it on the card and how it is laid out: one launch per product,
+operands through TMA into a ring of stages, products on the tensor cores
+(bf16 directly, fp32 as 3xTF32), and a product whose tiles cannot fill the
+card splits K across a thread-block cluster and sums the partial tiles
+through distributed shared memory in rank order.
+
+``plan`` chooses each product's tile, cluster size and K range from its
+shape, the card's SM count and its largest cluster, both asked once per
+device. ``launch`` reads x and w through their strides where a TMA map can
+(unit stride along one axis, the other 16-byte aligned) and copies an
+operand that cannot be read so; it allocates only y, and is safe to capture
+in a CUDA graph.
 
 Build: at first use, ``kernels.build`` compiles the source into a shared
 library with a plain C interface under ``build/kernels/``, loaded with
@@ -23,6 +34,7 @@ On a CPU tensor every product takes the plain version
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -40,8 +52,18 @@ LAUNCHES = 0
 
 _ACTS = {"none": 0, "relu": 1, "silu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BM, _BN, _BK = 64, 64, 16  # the kernel's output tile and K step
+#: the kernel's bodies by type, (BM, BN, K step) -> the body's index in the C
+#: interface, largest tile first; a K step is one 128-byte panel row of the
+#: type, or two (the fp32 32 x 32 tile's deep step)
+TILES = {torch.float32: {(64, 64, 32): 0, (32, 32, 32): 1, (32, 32, 64): 2},
+         torch.bfloat16: {(64, 64, 64): 0}}
+#: fewest K steps a split-K CTA takes
+MIN_STEPS = 2
+#: K a CTA of the fp32 32 x 32 tile walks from which the deep step pays
+DEEP_K = 256
 _lib: Optional[ctypes.CDLL] = None
+#: device index -> the largest split-K cluster (8 or 16), asked once
+_MAX_CLUSTER: dict = {}
 
 
 def build() -> Path:
@@ -56,30 +78,87 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ibn_pointwise_launch.argtypes = [
-            i32, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64, i64, i64,
-            i32, i32, i32, vp,
+            i32, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+            i32, vp,
         ]
         lib.ibn_pointwise_launch.restype = i32
+        lib.ibn_pointwise_max_cluster.argtypes = []
+        lib.ibn_pointwise_max_cluster.restype = i32
         _lib = lib
     return _lib
 
 
-def _split_k(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
-    """(splits, k_chunk): cut K when the output tiles alone cannot fill the
-    card twice over, keeping at least 512 of K per chunk."""
-    tiles = ceil_div(m, _BM) * ceil_div(n, _BN)
+@functools.lru_cache(maxsize=4096)  # the model's shapes repeat at every step
+def plan(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
+         max_cluster: int) -> tuple[tuple[int, int, int], int, int]:
+    """(body, splits, k_chunk) of one product (M, K, N): the body (BM, BN,
+    K step), the CTAs of a cluster that share each tile's K (a power of two
+    up to ``max_cluster``) and the K each takes (a multiple of the K step;
+    the last ranks may get less, or none).
+
+    The largest tile is taken when its tiles alone fill the card (``sms``
+    CTAs), the smallest one otherwise: a K step of a 32 x 32 tile costs
+    less than a 64 x 64 tile's for a quarter of the work, and a thin
+    product (M or N of 16 or 32) wastes most of a large tile. A product
+    whose tiles do not fill the card splits K into as many parts as fill
+    it, each at least ``MIN_STEPS`` K steps long. A CTA that walks at least
+    ``DEEP_K`` of K takes the deep step where its type has one."""
+    bodies = list(TILES[dtype])
+    for bm, bn in dict.fromkeys(b[:2] for b in bodies):  # largest first
+        tiles = ceil_div(m, bm) * ceil_div(n, bn)
+        if tiles >= sms:
+            break
+    step = min(b[2] for b in bodies if b[:2] == (bm, bn))
+    steps = ceil_div(k, step)
     splits = 1
-    if tiles < 2 * sms:
-        splits = max(1, min(ceil_div(2 * sms, tiles), k // 512))
-    k_chunk = round_up(ceil_div(k, splits), _BK)
-    return ceil_div(k, k_chunk), k_chunk
+    while (splits * 2 <= max_cluster and tiles * splits < sms
+           and ceil_div(steps, splits * 2) >= MIN_STEPS):
+        splits *= 2
+    k_chunk = ceil_div(steps, splits) * step
+    deep = [b for b in bodies if b[:2] == (bm, bn) and b[2] > step]
+    if deep and k_chunk >= DEEP_K:
+        step = deep[0][2]
+        k_chunk = ceil_div(ceil_div(k, step), splits) * step
+    return (bm, bn, step), splits, k_chunk
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-           act: str) -> torch.Tensor:
+def _max_cluster(index: int) -> int:
+    got = _MAX_CLUSTER.get(index)
+    if got is None:
+        got = _library().ibn_pointwise_max_cluster()
+        if got < 0:
+            raise RuntimeError(f"ibn_pointwise: asking the card for its cluster limit failed: "
+                               f"CUDA error {-got}")
+        _MAX_CLUSTER[index] = got
+    return got
+
+
+def _operand(t: torch.Tensor, k_axis: int) -> tuple[torch.Tensor, bool, int]:
+    """(t, k-major, outer stride): ``t`` as a TMA map reads it, unit stride
+    along one axis (K's when it has one) and the other stride and the start
+    16-byte aligned; else a copy that is (a fresh allocation, its rows padded
+    to 16 bytes, the K axis innermost)."""
+    size = t.element_size()
+    align = 16 // size
+    for inner in (k_axis, 1 - k_axis):
+        outer = 1 - inner
+        if t.stride(inner) == 1 or t.shape[inner] == 1:
+            stride = t.stride(outer) if t.shape[outer] > 1 else round_up(t.shape[inner], align)
+            if stride > 0 and stride % align == 0 and t.data_ptr() % 16 == 0:
+                return t, inner == k_axis, stride
+    rows, cols = (t.shape[1], t.shape[0]) if k_axis == 0 else t.shape
+    buf = t.new_empty((rows, round_up(cols, align)))[:, :cols]
+    buf.copy_(t.t() if k_axis == 0 else t)
+    return (buf.t() if k_axis == 0 else buf), True, buf.stride(0)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], act: str,
+           *, drop_rank: int = -1, drop_last: int = -1) -> torch.Tensor:
     """One launch of the kernel: ``act(x @ w + b)`` into a new (N, Cout)
     tensor. x and w may be strided views; b (Cout,) or None. Raises on
-    anything the kernel does not take."""
+    anything the kernel does not take. ``drop_rank``/``drop_last`` are the
+    controls chip_smoke.py holds against the limit (a cluster rank's partial
+    left out of the sum, a rank's last K step left unloaded); -1 for none."""
     global LAUNCHES
     sms = kbuild.require_sm90(x, "ibn_pointwise")
     if act not in _ACTS:
@@ -100,19 +179,19 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None and (b.shape != (n,) or b.stride(0) != 1):
         raise ValueError(f"b must be a contiguous ({n},) vector, got {tuple(b.shape)}")
     lib = _library()
+    index = x.device.index
+    body, splits, k_chunk = plan(m, n, k, x.dtype, sms, _max_cluster(index))
+    a, a_kmajor, sa = _operand(x, 1)
+    bt, b_kmajor, sb = _operand(w, 0)
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
-    splits, k_chunk = _split_k(m, n, k, sms)
-    ws = (torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
-          if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        err = lib.ibn_pointwise_launch(
-            _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-            None if b is None else b.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, k, n,
-            x.stride(0), x.stride(1), w.stride(0), w.stride(1),
-            _ACTS[act], k_chunk, splits,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    args = (_DTYPES[x.dtype], a.data_ptr(), bt.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), m, k, n, sa, sb, int(a_kmajor), int(b_kmajor), _ACTS[act],
+            TILES[x.dtype][body], splits, k_chunk, drop_rank, drop_last)
+    if index == torch.cuda.current_device():
+        err = lib.ibn_pointwise_launch(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = lib.ibn_pointwise_launch(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ibn_pointwise kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

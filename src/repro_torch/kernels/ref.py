@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels: the ground truth each
 hand-written kernel is held against on the card, and what the wrappers run
-for tensors that lie on the CPU. Counterpart of ``repro/kernels/ref.py``."""
+for tensors that lie on the CPU. Counterpart of ``repro/kernels/ref.py``.
+``vjp`` gives the gradient of a plain version by recomputing it."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -123,3 +124,24 @@ def gmm_ref(x, w) -> torch.Tensor:
     """Grouped matmul y[e] = x[e] @ w[e]: x (E,C,D), w (E,D,F) -> (E,C,F).
     fp32 math, then a cast to ``x.dtype``."""
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def vjp(fn: Callable, inputs: Sequence[torch.Tensor], needs_grad: Sequence[bool],
+        grads_out: Sequence[Optional[torch.Tensor]]) -> tuple:
+    """The VJP of ``fn`` at ``inputs``, recomputed under autograd: for each
+    input that ``needs_grad`` marks, the gradient of ``fn``'s outputs
+    against ``grads_out`` (``None`` for an output that has no gradient);
+    ``None`` for the other inputs. What a kernel's ``backward`` returns where
+    the TPU kernel had no VJP and the reference differentiates the plain
+    jnp function instead."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(need)) for t, need in zip(inputs, needs_grad)]
+        outs = fn(*leaves)
+        outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        wanted = [t for t in leaves if t.requires_grad]
+        if not pairs or not wanted:
+            return tuple(None for _ in inputs)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in leaves)

@@ -19,9 +19,15 @@ library with a plain C interface under ``build/kernels/``, loaded with
 ``ctypes``. Nothing is built when the module is imported.
 
 On a CPU tensor ``ssd_scan`` takes the plain version (``ref.ssd_chunked``);
-a CUDA tensor launches the kernel or raises. There is no gradient: the TPU
-kernel has no VJP, so backward raises. Nor is there an initial state: the
+a CUDA tensor launches the kernel or raises. There is no initial state: the
 TPU kernel starts from zeros. ``LAUNCHES`` counts kernel launches.
+
+Gradient (``SsdScan``): the TPU kernel has no VJP, and the reference's
+Mamba2 mixer differentiates its jnp chunked scan. So backward recomputes
+that scan in plain torch (``ref.ssd_chunked``) from the saved inputs, on
+their device, and takes autograd's VJP of it for x, dt, A, B and C; the
+final state's gradient may be absent (``None``) or a tensor. The forward on
+the card still launches the kernel; a backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -116,21 +122,26 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 class SsdScan(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) with no gradient."""
+    """The kernel (or, on the CPU, the plain version), with the plain
+    chunked scan's VJP as its gradient (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
         if x.device.type == "cpu":
             return ref.ssd_chunked(x, dt, A, B, C, chunk)
         return launch(x, dt, A, B, C, chunk=chunk)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "ssd_scan has no gradient: the TPU kernel it ports has no VJP")
+    def backward(ctx, dy, dstate):
+        return ref.vjp(lambda *t: ref.ssd_chunked(*t, ctx.chunk), ctx.saved_tensors,
+                       ctx.needs_input_grad[:5], (dy, dstate)) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32)."""
+    """(y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32),
+    differentiable in x, dt, A, B and C."""
     return SsdScan.apply(x, dt, A, B, C, chunk)

@@ -29,6 +29,7 @@ from repro_torch.serving import kvcache as TK  # noqa: E402
 # bf16 the output is rounded to 8 bits of mantissa
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 CORE_TOL = 1e-5  # fp32 attention cores, same algorithm, another summation order
+GRAD_TOL = 1e-4  # fp32 gradients, absolute, inputs N(0, 1)
 
 # tests/test_kernels.py's shapes: (b, h, kv, sq, skv, hd, causal)
 SHAPES = [
@@ -116,13 +117,46 @@ def test_ops_flash_attention_takes_the_model_layout(causal):
     assert np.array_equal(got.numpy(), want)
 
 
-def test_kernel_has_no_gradient_and_refuses_cpu_tensors():
-    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 2, 1, 8, 8, 16))
-    out = tflash.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        out.sum().backward()
+def test_kernel_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
-        tflash.launch(q.detach(), k.detach(), v.detach(), causal=True)
+        tflash.launch(q, k, v, causal=True)
+
+
+# (b, h, kv, s, t, hd, causal) in the model's layout: self-attention, GQA with
+# a ragged tile, causal with sq != skv both ways (top-left, as the model), and
+# cross-attention
+GRAD_SHAPES = [(2, 4, 2, 40, 40, 16, True), (1, 4, 1, 24, 40, 32, True),
+               (1, 2, 2, 40, 24, 16, True), (2, 4, 2, 24, 40, 16, False)]
+_naive_vjp = jax.jit(lambda q, k, v, do, causal: jax.vjp(
+    lambda q, k, v: RL.naive_attention(q, k, v, causal=causal), q, k, v)[1](do),
+    static_argnames=("causal",))
+
+
+def attention_grad_err(b, h, kv, s, t, hd, causal):
+    """max |port grad - jax.vjp grad| over q, k and v of
+    ``ops.flash_attention`` against the reference model's attention, fp32."""
+    rng = np.random.default_rng(b + s + t)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32)
+                   for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd), (b, s, h, hd)))
+    want = _naive_vjp(*map(jnp.asarray, (q, k, v, do)), causal=causal)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    before = tflash.LAUNCHES
+    ops.flash_attention(*leaves, causal=causal).backward(torch.from_numpy(do))
+    assert tflash.LAUNCHES == before
+    err = 0.0
+    for got, ref in zip(leaves, want):
+        assert got.grad.shape == ref.shape
+        err = max(err, float(np.max(np.abs(got.grad.numpy() - np.asarray(ref)))))
+    return err
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,hd,causal", GRAD_SHAPES)
+def test_gradient_matches_jax_grad(b, h, kv, s, t, hd, causal):
+    """``ops.flash_attention``'s backward (the plain version's VJP,
+    recomputed) against ``jax.vjp`` of the reference model's attention on
+    the same inputs and cotangent, fp32; no kernel launch on the CPU."""
+    assert attention_grad_err(b, h, kv, s, t, hd, causal) < GRAD_TOL
 
 
 def _model_layout(seed, b=2, s=5, t=40, h=4, kv=2, hd=16):

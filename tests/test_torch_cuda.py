@@ -1,6 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
-ibn_pointwise forward and backward, flash_attention, ssd_scan and gmm
-forward, and the prefills of the dense transformer (flash_attention), the
+ibn_pointwise, flash_attention, ssd_scan and gmm, forward and backward, and
+the prefills of the dense transformer (flash_attention), the
 Mamba2 LM (ssd_scan), the MoE transformer (gmm) and the hybrid
 (flash_attention and ssd_scan) against the port's CPU forward. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
@@ -13,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.common import tree_map  # noqa: E402
+from repro_torch.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
@@ -91,6 +91,69 @@ def test_kernel_gradient_matches_plain_version_on_card(n, ci, co, act):
     for a, p in zip(ours, plain):
         scale = max(1.0, p.grad.abs().max().item())
         assert (a.grad - p.grad).abs().max().item() / scale < TOL["float32"]
+
+
+# the Hopper body's edges, (M, K, N, how x and w lie): K 960 split across a
+# cluster, the backward's dw at K 16384 (xᵀ @ dz) and dx (dz @ wᵀ), ragged M
+# and N, one row, every layout of the two operands, and squeeze-excite's 6
+# channels (rows under 16 bytes: the wrapper copies them)
+K1_EDGES = [(64, 960, 160, "x", "w"), (64, 960, 320, "x", "w"), (16, 16384, 48, "xT", "w"),
+            (48, 16384, 96, "xT", "w"), (16384, 48, 16, "x", "wT"), (77, 130, 33, "x", "w"),
+            (1000, 70, 50, "xT", "wT"), (1, 96, 1280, "x", "w"), (131, 4096, 45, "x", "wT"),
+            (8, 6, 144, "x", "w"), (8, 144, 6, "x", "w")]
+
+
+def _k1_operands(m, k, n, la, lb, td, seed=16):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(k, m) if la == "xT" else (m, k)).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(n, k) if lb == "wT" else (k, n)) / np.sqrt(k))
+                         .astype(np.float32))
+    bias = torch.from_numpy((rng.normal(size=(n,)) * 0.1).astype(np.float32)).cuda().to(td)
+    a = a.cuda().to(td)
+    b = b.cuda().to(td)
+    return (a.t() if la == "xT" else a), (b.t() if lb == "wT" else b), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,la,lb", K1_EDGES)
+def test_kernel_edges_match_plain_version_on_card(m, k, n, la, lb, dtype):
+    _need_sm90()
+    td = getattr(torch, dtype)
+    a, b, bias = _k1_operands(m, k, n, la, lb, td)
+    before = ibn_conv.LAUNCHES
+    got = ibn_conv.launch(a, b, bias, "relu")
+    torch.cuda.synchronize()
+    assert ibn_conv.LAUNCHES == before + 1  # one launch, split K or not
+    assert got.dtype == td and got.shape == (m, n) and got.is_contiguous()
+    want = ibn_pointwise_ref(a, b, bias, "relu")
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() / scale < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,la,lb", [K1_EDGES[0], K1_EDGES[2]])
+def test_kernel_split_k_controls_fail_the_limit(m, k, n, la, lb, dtype):
+    """The split-K sum is checked, not assumed: leaving one cluster rank's
+    partial out of it, or the last K step of the last rank unloaded, breaks
+    the limit that the kernel holds."""
+    _need_sm90()
+    td = getattr(torch, dtype)
+    a, b, bias = _k1_operands(m, k, n, la, lb, td)
+    index = a.device.index
+    _, splits, k_chunk = ibn_conv.plan(m, n, k, td, kbuild.device_info(index)[1],
+                                       ibn_conv._max_cluster(index))
+    assert splits > 1
+    want = ibn_pointwise_ref(a, b, bias, "none").float()
+    scale = max(1.0, want.abs().max().item())
+    last = (k - 1) // k_chunk
+    for control in ({"drop_rank": last}, {"drop_rank": 0}, {"drop_last": last}):
+        got = ibn_conv.launch(a, b, bias, "none", **control).float()
+        assert (got - want).abs().max().item() / scale > TOL[dtype], control
+    got = ibn_conv.launch(a, b, bias, "none").float()
+    assert (got - want).abs().max().item() / scale < TOL[dtype]
+    assert torch.equal(ibn_conv.launch(a, b, bias, "none").float(), got)  # a fixed order
 
 
 # flash_attention: tests/test_kernels.py's shapes, causal with sq != skv, a
@@ -413,3 +476,94 @@ def test_prefill_on_card_launches_its_kernel_per_layer(family, kernel, per_layer
                                      cfg)
     assert torch.max(torch.abs(got.cpu() - want)).item() / want.abs().max().item() < 1e-4
     assert abs(aux.item() - want_aux.item()) < 1e-4
+
+
+# H8: the backward of gmm (three kernel launches for a product with both
+# grads), ssd_scan and flash_attention (each the plain version's VJP,
+# recomputed on the card) against the plain version's own autograd grads
+
+def _grads(fn, inputs, cotangent):
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    (out[0] if isinstance(out, tuple) else out).backward(cotangent)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", [(4, 64, 32, 48), (3, 129, 33, 257), (4, 688, 2048, 1408)])
+def test_gmm_backward_matches_plain_version_on_card(e, c, d, f, dtype):
+    _need_sm90()
+    rng = np.random.default_rng(12)
+    td = getattr(torch, dtype)
+    x, w, dy = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(td)
+                for s in ((e, c, d), (e, d, f), (e, c, f)))
+    before = tgmm.LAUNCHES
+    got = _grads(ops.gmm, (x, w), dy)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES - before == 3  # y, dx and dw
+    want = _grads(gmm_ref, (x, w), dy)
+    for g, p in zip(got, want):
+        assert g.dtype == td and g.shape == p.shape
+        assert _rel_to_max(g, p) < GMM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [SSD_SHAPES[4], SSD_SHAPES[6]])
+def test_ssd_scan_backward_matches_plain_version_on_card(b, s, h, p, g, n, chunk, dtype):
+    _need_sm90()
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype)
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(0),
+                     device="cuda").to(x.dtype)
+    before = tssd.LAUNCHES
+    got = _grads(lambda *t: ops.ssd_scan(*t, chunk=chunk), (x, dt, A, Bm, Cm), dy)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES - before == 1  # the forward; backward is plain torch
+    want = _grads(lambda *t: ssd_chunked(*t, chunk), (x, dt, A, Bm, Cm), dy)
+    for gr, pl in zip(got, want):
+        assert gr.dtype == pl.dtype and torch.isfinite(gr.float()).all()
+        assert _rel_to_max(gr, pl) < SSD_TOL["float32"]  # the same plain VJP, recomputed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd,causal", [ATTN_SHAPES[5], ATTN_SHAPES[9]])
+def test_flash_attention_backward_matches_plain_version_on_card(b, h, kv, sq, skv, hd, causal,
+                                                                dtype):
+    _need_sm90()
+    rng = np.random.default_rng(13)
+    td = getattr(torch, dtype)
+    q, k, v = _attention_inputs(rng, b, h, kv, sq, skv, hd, td, "bshd")
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).cuda().to(td)
+    before = tflash.LAUNCHES
+    got = _grads(lambda *t: tflash.flash_attention(*t, causal=causal), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES - before == 1
+    want = _grads(lambda *t: flash_attention_ref(*t, causal=causal), (q, k, v), do)
+    for gr, pl in zip(got, want):
+        assert gr.dtype == td and gr.shape == pl.shape
+        assert _rel_to_max(gr, pl) < 1e-5  # the same plain VJP, recomputed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ssm", "moe"])
+def test_model_backward_on_card_matches_cpu(family):
+    """H8 on the card: the gradient of a small Mamba2 LM and MoE transformer
+    (fp32) through the kernels' backwards, against the port's CPU gradient
+    (the plain versions) on the same parameters."""
+    _need_sm90()
+    cfg = _family_cfg(family)
+    params = api.init(0, cfg, device="cuda")
+    cpu_params = tree_map(lambda t: t.detach().cpu().requires_grad_(True), params)
+    params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, 1000, size=(2, 77)))
+    ct = torch.from_numpy(np.random.default_rng(15).normal(size=(2, 77, 1000))
+                          .astype(np.float32))
+    got, _ = api.forward(params, {"tokens": toks.cuda()}, cfg)
+    got.backward(ct.cuda())
+    want, _ = api.forward(cpu_params, {"tokens": toks}, cfg)
+    want.backward(ct)
+    for leaf, cpu_leaf in zip(tree_leaves(params), tree_leaves(cpu_params)):
+        scale = max(1.0, cpu_leaf.grad.abs().max().item())
+        assert (leaf.grad.cpu() - cpu_leaf.grad).abs().max().item() / scale < 1e-4

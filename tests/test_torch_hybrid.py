@@ -23,8 +23,9 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import api, hybrid as TH  # noqa: E402
-from test_torch_ssm import (DECODE_TOL, LOGIT_TOL, _port, _shapes, draw_params,  # noqa: E402
-                            port_decode, reference_decode, rel, tokens)
+from test_torch_ssm import (DECODE_TOL, GRAD_TOL, LOGIT_TOL, _port, _shapes,  # noqa: E402
+                            draw_params, model_vjp, port_decode, reference_decode, rel,
+                            tokens)
 
 CFG = ref_zamba.SMOKE
 STEPS, MAX = 6, 16
@@ -68,6 +69,17 @@ def test_forward_under_flash_pallas_matches_reference(monkeypatch):
     assert tflash.LAUNCHES == before  # the plain version on the CPU
     assert len(calls) == TH._plan(cfg)[0]  # once per shared-block application
     assert rel(logits.numpy(), want) < LOGIT_TOL["float32"]
+
+
+def test_vjp_matches_reference():
+    """H8: the port's hybrid differentiates under ``flash_pallas``, its
+    Mamba2 layers' scans and its shared block's attention (the plain
+    versions' VJPs on the CPU, where the reference takes its chunked
+    attention), and its parameter gradients, the shared block's summed over
+    its applications, equal the reference's, fp32."""
+    cfg = dataclasses.replace(CFG, compute_dtype="float32", attn_impl="flash_pallas")
+    errs = model_vjp(RH, TH, _params(), cfg, tokens(cfg.vocab_size, 37, seed=15), 16)
+    assert max(errs.values()) < GRAD_TOL, errs
 
 
 def test_decode_steps_match_reference_and_forward():

@@ -28,7 +28,8 @@ from repro.models import moe as RM  # noqa: E402
 from repro_torch.kernels import gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import api, moe as TM  # noqa: E402
-from test_torch_ssm import _port, _shapes, draw_params, rel, tokens  # noqa: E402
+from test_torch_ssm import (GRAD_TOL, _port, _shapes, draw_params, model_vjp,  # noqa: E402
+                            rel, tokens)
 
 GMM_TOL = {"float32": 1e-4, "bfloat16": 1e-1}  # tests/test_kernels.py's
 ROUTE_TOL = 1e-6  # top_w, aux and combine: fp32, the same sums
@@ -67,16 +68,53 @@ def test_plain_gmm_matches_pallas_kernel(e, c, d, f, dtype):
     assert np.max(np.abs(got.float().numpy() - np.asarray(oracle, np.float32))) < GMM_TOL[dtype]
 
 
-def test_gmm_takes_strided_views_and_has_no_gradient():
+def test_gmm_takes_strided_views():
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(3, 20, 12)).astype(np.float32))
     w = torch.from_numpy(rng.normal(size=(3, 16, 12)).astype(np.float32))
     got = ops.gmm(x[:, ::2], w.transpose(1, 2))  # (3, 10, 12) @ (3, 12, 16)
     want = torch.einsum("ecd,efd->ecf", x[:, ::2], w)
     assert torch.max(torch.abs(got - want)).item() < 1e-5
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        ops.gmm(x, w.transpose(1, 2)).sum().backward()
+
+
+_gmm_vjp = jax.jit(lambda x, w, dy: jax.vjp(jref.gmm_ref, x, w)[1](dy))
+
+
+def gmm_grad_err(e, c, d, f, strided):
+    """max |port grad - jax.vjp grad| / max |jax.vjp grad| over dx and dw of
+    ``ops.gmm`` (contiguous, or a row-strided x and a transposed w), fp32."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(e, c, d)).astype(np.float32)
+    w = rng.normal(size=(e, d, f)).astype(np.float32)
+    dy = rng.normal(size=(e, c, f)).astype(np.float32)
+    want = _gmm_vjp(jnp.asarray(x), jnp.asarray(w), jnp.asarray(dy))
+    tx = torch.from_numpy(np.repeat(x, 2, axis=1) if strided else x).requires_grad_(True)
+    tw = torch.from_numpy(w.transpose(0, 2, 1).copy() if strided else w).requires_grad_(True)
+    xv, wv = (tx[:, ::2], tw.transpose(1, 2)) if strided else (tx, tw)
+    before = tgmm.LAUNCHES
+    ops.gmm(xv, wv).backward(torch.from_numpy(dy))
+    assert tgmm.LAUNCHES == before
+    gx = tx.grad[:, ::2] + tx.grad[:, 1::2] if strided else tx.grad
+    gw = tw.grad.transpose(1, 2) if strided else tw.grad
+    if strided:
+        assert not tx.grad[:, 1::2].any()  # the rows the view skips get no gradient
+    err = 0.0
+    for got, ref_grad in ((gx, want[0]), (gw, want[1])):
+        ref_grad = np.asarray(ref_grad)
+        assert got.shape == ref_grad.shape
+        err = max(err, float(np.max(np.abs(got.numpy() - ref_grad)) / np.abs(ref_grad).max()))
+    return err
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES[:3])
+def test_gmm_gradient_matches_jax_grad(e, c, d, f, strided):
+    """``ops.gmm``'s backward (``dx = dy @ wᵀ`` and ``dw = xᵀ @ dy``, two
+    more grouped products) against ``jax.vjp`` of the reference's einsum on
+    the same inputs and cotangent, fp32, on contiguous operands and on the
+    MoE layer's kind of views (a row-strided x, a transposed w); no kernel
+    launch on the CPU."""
+    assert gmm_grad_err(e, c, d, f, strided) < GMM_TOL["float32"]
 
 
 @pytest.mark.parametrize("e,c,d,f", [(3, 45, 40, 70), (2, 100, 70, 30), (3, 129, 33, 257)])
@@ -189,6 +227,15 @@ def test_forward_and_aux_match_reference(compute_dtype):
     assert rel(logits.numpy(), want) < LOGIT_TOL[compute_dtype]
     assert aux.shape == () and aux.dtype == torch.float32
     assert abs(float(aux) - float(want_aux)) < (1e-6 if compute_dtype == "float32" else 1e-2)
+
+
+def test_vjp_matches_reference():
+    """H8: the port's MoE transformer differentiates (the expert products'
+    backward is grouped products) and its parameter gradients, router and
+    shared experts included, equal the reference's, fp32."""
+    cfg = dataclasses.replace(CFG, compute_dtype="float32")
+    errs = model_vjp(RM, TM, _params(), cfg, tokens(cfg.vocab_size, 16, seed=13), 14)
+    assert max(errs.values()) < GRAD_TOL, errs
 
 
 def test_decode_steps_match_reference():

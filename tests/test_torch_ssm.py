@@ -42,6 +42,9 @@ CHUNKED_TOL = 1e-5
 # holds; a wrong scan, state or position moves logits by O(1)
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 DECODE_TOL = 2e-3  # decode steps, fp32 compute, relative to max |logit|
+# gradients, fp32: relative to the largest |reference gradient| of each
+# input or parameter, or absolute below 1 (the same sums in another order)
+GRAD_TOL = 1e-4
 
 # tests/test_kernels.py's (b, s, h, p, g, n, chunk), plus a ragged tail
 # with G > 1 and a chunk longer than S
@@ -114,12 +117,43 @@ def test_segsum_masks_above_the_diagonal_before_the_exp():
     assert torch.isfinite(torch.exp(out)).all()
 
 
-def test_scan_has_no_gradient():
-    x, dt, A, Bm, Cm = _t(*scan_inputs(1, 8, 2, 4, 1, 4))
-    x.requires_grad_(True)
-    y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=4)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        y.sum().backward()
+_chunked_vjp = jax.jit(lambda args, cts, chunk: jax.vjp(
+    lambda *a: RS.ssd_chunked(*a, chunk), *args)[1](cts), static_argnames=("chunk",))
+
+
+def scan_grad_err(b, s, h, p, g, n, chunk, with_state):
+    """Over x, dt, A, B and C: max |port grad - jax.vjp grad| over max(1,
+    max |jax.vjp grad|) of ``ops.ssd_scan``, fp32, with y's cotangent alone
+    (the final state's gradient ``None``) or the state's too."""
+    inputs = scan_inputs(b, s, h, p, g, n, seed=2)
+    rng = np.random.default_rng(3)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dst = (rng.normal(size=(b, h, p, n)) if with_state else np.zeros((b, h, p, n)))
+    dst = dst.astype(np.float32)
+    want = _chunked_vjp(tuple(map(jnp.asarray, inputs)), (jnp.asarray(dy), jnp.asarray(dst)),
+                        chunk=chunk)
+    leaves = [t.requires_grad_(True) for t in _t(*inputs)]
+    y, st = ops.ssd_scan(*leaves, chunk=chunk)
+    outs, cts = ([y, st], _t(dy, dst)) if with_state else ([y], _t(dy))
+    torch.autograd.backward(outs, cts)
+    err = 0.0
+    for got, ref_grad in zip(leaves, want):
+        ref_grad = np.asarray(ref_grad)
+        assert got.grad.shape == ref_grad.shape
+        err = max(err, float(np.max(np.abs(got.grad.numpy() - ref_grad))
+                             / max(1.0, np.abs(ref_grad).max())))
+    return err
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES[:2] + SCAN_SHAPES[4:5])
+def test_scan_gradient_matches_jax_grad(b, s, h, p, g, n, chunk, with_state):
+    """``ops.ssd_scan``'s backward (the plain chunked scan's VJP, recomputed)
+    for x, dt, A, B and C against ``jax.vjp`` of the reference model's
+    ``ssd_chunked`` on the same inputs and cotangents, fp32: with y's
+    cotangent alone (the final state unused, its gradient ``None``) and with
+    the final state's as well."""
+    assert scan_grad_err(b, s, h, p, g, n, chunk, with_state) < GRAD_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +236,55 @@ def test_forward_matches_reference(compute_dtype):
     assert logits.shape == want.shape and logits.dtype == torch.float32
     assert float(aux) == 0.0
     assert rel(logits.numpy(), want) < LOGIT_TOL[compute_dtype]
+
+
+def grad_err(flat_got: dict, want) -> dict:
+    """Per leaf (by path): max |port grad - reference grad| over
+    max(1, max |reference grad|); ``flat_got`` is keyed by path."""
+    flat_want = _leaves(want)
+    assert set(flat_got) == set(flat_want)
+    out = {}
+    for path, ref_grad in flat_want.items():
+        ref_grad = np.asarray(ref_grad, np.float32)
+        g = flat_got[path]
+        assert g is not None and tuple(g.shape) == ref_grad.shape, path
+        out[path] = float(np.max(np.abs(g.numpy() - ref_grad)) / max(1.0, np.abs(ref_grad).max()))
+    return out
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _leaves(tree[key], f"{path}/{key}").items()}
+    return {path: tree}
+
+
+def model_vjp(module, port_module, np_params, cfg, toks, seed):
+    """The gradient of <logits, ct> with respect to every parameter, for a
+    fixed random cotangent ct: ``jax.vjp`` of the reference forward, and
+    ``backward`` through the port's forward on the converted parameters.
+    Returns the per-leaf errors (``grad_err``)."""
+    def ref_logits(p):
+        out = module.forward(p, {"tokens": jnp.asarray(toks)}, cfg)
+        return out[0] if isinstance(out, tuple) else out
+
+    shape = jax.eval_shape(ref_logits, np_params).shape
+    ct = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    (want,) = jax.jit(lambda p, c: jax.vjp(ref_logits, p)[1](c))(np_params, jnp.asarray(ct))
+    params = port_module.params_from_reference(np_params, "cpu")
+    for leaf in _leaves(params).values():
+        leaf.requires_grad_(True)
+    got, _ = api.forward(params, {"tokens": torch.from_numpy(toks)}, _port(cfg))
+    got.backward(torch.from_numpy(ct))
+    return grad_err({k: t.grad for k, t in _leaves(params).items()}, want)
+
+
+def test_vjp_matches_reference():
+    """H8: the port's Mamba2 LM differentiates (the scan's backward is the
+    plain chunked scan's VJP) and its parameter gradients equal the
+    reference's, fp32, over a ragged last chunk."""
+    cfg = dataclasses.replace(ref_mamba.SMOKE, compute_dtype="float32")
+    errs = model_vjp(RS, TS, _params(), cfg, tokens(cfg.vocab_size, 37, seed=11), 12)
+    assert max(errs.values()) < GRAD_TOL, errs
 
 
 def test_decode_steps_match_reference_and_forward():

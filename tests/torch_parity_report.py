@@ -336,9 +336,41 @@ def family_rows():
     return rows
 
 
+def gradient_rows():
+    """H8: the kernels' backwards and the families' parameter gradients
+    against ``jax.vjp`` of the reference."""
+    gmm = max(tm.gmm_grad_err(*shape, strided)
+              for shape in tm.GMM_SHAPES[:3] for strided in (False, True))
+    scan = max(tss.scan_grad_err(*shape, with_state)
+               for shape in tss.SCAN_SHAPES[:2] + tss.SCAN_SHAPES[4:5]
+               for with_state in (False, True))
+    attn = max(ta.attention_grad_err(*shape) for shape in ta.GRAD_SHAPES)
+    vjp = {}
+    for fam, mod, port, params, cfg, n, seeds in (
+            ("ssm", tss.RS, tss.TS, tss._params(), tss.ref_mamba.SMOKE, 37, (11, 12)),
+            ("moe", tm.RM, tm.TM, tm._params(), tm.CFG, 16, (13, 14)),
+            ("hybrid", th.RH, th.TH, th._params(),
+             tt.dataclasses.replace(th.CFG, attn_impl="flash_pallas"), 37, (15, 16))):
+        cfg = tt.dataclasses.replace(cfg, compute_dtype="float32")
+        errs = tss.model_vjp(mod, port, params, cfg, tss.tokens(cfg.vocab_size, n, seed=seeds[0]),
+                             seeds[1])
+        vjp[fam] = max(errs.values())
+    return [("ops.gmm dx, dw vs jax.vjp, 3 shapes, contiguous and strided views, fp32, / max",
+             "test_gmm_gradient_matches_jax_grad", tm.GMM_TOL["float32"], gmm),
+            ("ops.ssd_scan dx, ddt, dA, dB, dC vs jax.vjp, 3 shapes, state cotangent None "
+             "or not, fp32, / max(1, max)", "test_scan_gradient_matches_jax_grad",
+             tss.GRAD_TOL, scan),
+            ("ops.flash_attention dq, dk, dv vs jax.vjp of the model's attention, 4 shapes, fp32",
+             "test_gradient_matches_jax_grad", ta.GRAD_TOL, attn)] + [
+            (f"{fam} parameter gradients of <logits, ct> vs jax.vjp, smoke config"
+             f"{', flash_pallas' if fam == 'hybrid' else ''}, fp32, per leaf / max(1, max)",
+             "test_vjp_matches_reference", tss.GRAD_TOL, err) for fam, err in vjp.items()]
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
-            + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows())
+            + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
+            + gradient_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
