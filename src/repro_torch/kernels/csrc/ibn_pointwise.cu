@@ -41,9 +41,9 @@
 //     layout, so x, w, their transposes and dz all go in as they lie: wgmma
 //     reads tf32 only K-major, and w (Cin, Cout) and both operands of dw are
 //     MN-major. bf16: m16n8k16 directly. fp32: 3xTF32 on m16n8k8: each
-//     operand v is split into hi = tf32(v) and lo = tf32(v - hi), and a
-//     product is lo*hi + hi*lo + hi*hi in fp32, which keeps about 21 bits of
-//     each operand (plain TF32: 10). Every 4 K steps' products sum in
+//     operand v is split into its tf32 part hi and the rest lo = v - hi, and
+//     a product is lo*hi + hi*lo + hi*hi in fp32, which keeps about 21 bits
+//     of each operand (plain TF32: 10). Every 4 K steps' products sum in
 //     a fresh accumulator that is then added to the running sum in fp32, so
 //     the tensor cores' accumulation covers 128 (bf16: 256) terms, not all K;
 //     the kernel stays within 1e-4 of fp32 up to dw's K = 100352.
@@ -131,16 +131,14 @@ __device__ __forceinline__ uint32_t tile_off(int r, int k) {
                                ((((c >> 4) ^ (q & 7)) << 4) | (c & 15)));
 }
 
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// hi and lo parts of v for 3xTF32
+// hi and lo parts of v for 3xTF32: hi is v with the 13 mantissa bits that
+// tf32 drops cleared, lo = v - hi exactly; the tensor cores read the tf32
+// part of each register, so lo keeps the next 11 bits of v, truncated: this
+// gives up a bit of lo for a mask and a subtraction in place of two
+// cvt.rna.tf32.f32, which slowed every K step.
 __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
