@@ -16,8 +16,8 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                (dx, dw, db) against the plain PyTorch version on the card, its
                edges (K 960 and dw's K 16384 split over a cluster, ragged M and
                N, transposed views, bf16) with two controls that the limit
-               must fail (a cluster rank's partial dropped, the last K step
-               unloaded), and
+               must fail (the plain version without a cluster rank's K range,
+               and without the last K step), and
                times kernel, plain version and ``torch.addmm`` + act as the host
                issues them (CUDA events around 20 calls), then on the device
                alone (CUDA graphs of 20 calls, in turns) the forward, dx and dw
@@ -84,8 +84,7 @@ flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
 to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
-``--json PATH`` also writes every per-shape measurement to PATH;
-``--phases kernel,profile`` runs those phases alone (no kernels line).
+``--json PATH`` also writes every per-shape measurement to PATH.
 """
 from __future__ import annotations
 
@@ -335,31 +334,33 @@ def check_shape(n, cin, cout, act, dtype, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     fwd_abs, fwd_rel = rel_err(y, y_ref)
 
+    near_zero = torch.zeros((), dtype=torch.bool)
+    if act == "relu":
+        # relu's gradient steps at 0, where two sums in another order may
+        # fall on either side: the cotangent is 0 wherever the plain
+        # pre-activation lies within the forward's limit of 0 (by the plain
+        # version alone), and each version's backward takes its own mask
+        z_ref = ibn_pointwise_ref(x, w, b, "none").float()
+        near_zero = z_ref.abs() <= tol * max(1.0, z_ref.abs().max().item())
+        dy = dy.masked_fill(near_zero, 0)
     leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
     y_k = ibn_conv.ibn_pointwise(*leaves, act=act)
     y_k.backward(dy)
     plain = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    if act == "relu":
-        # relu's gradient is dy where y > 0, read from each version's own y:
-        # the plain gradient is taken with the kernel's mask (the products
-        # are what is held), and a pre-activation the two versions put on
-        # either side of 0 must lie within the forward's limit of 0
-        z_ref = ibn_pointwise_ref(x, w, b, "none").float()
-        flips = (y_k.detach() > 0) != (z_ref > 0)
-        scale = max(1.0, z_ref.abs().max().item())
-        if flips.any() and z_ref[flips].abs().max().item() > tol * scale:
-            raise AssertionError(f"ibn_pointwise's relu mask differs away from 0 at "
-                                 f"{(n, cin, cout)}")
-        (ibn_pointwise_ref(*plain, "none") * (y_k.detach() > 0)).backward(dy)
-    else:
-        flips = torch.zeros(())
-        ibn_pointwise_ref(*plain, act).backward(dy)
+    y_p = ibn_pointwise_ref(*plain, act)
+    y_p.backward(dy)
     torch.cuda.synchronize()
+    # the two relu masks may differ only at pre-activations within the limit of 0
+    flips = (y_k.detach() > 0) != (y_p.detach() > 0)
+    if act == "relu" and (flips & ~near_zero).any():
+        raise AssertionError(f"ibn_pointwise's relu mask differs away from 0 at "
+                             f"{(n, cin, cout)}")
     bwd = [rel_err(a.grad, p.grad)[1] for a, p in zip(leaves, plain)]
     rec = {"n": n, "cin": cin, "cout": cout, "act": act, "dtype": str(dtype)[6:],
            "fwd_max_abs_err": fwd_abs, "fwd_rel_err": fwd_rel,
            "dx_rel_err": bwd[0], "dw_rel_err": bwd[1], "db_rel_err": bwd[2],
-           "relu_mask_flips": int(flips.sum().item()), "tol": tol}
+           "relu_mask_flips": int(flips.sum().item()) if act == "relu" else 0,
+           "cotangent_zeroed": int(near_zero.sum().item()), "tol": tol}
     if max(fwd_rel, *bwd) > tol:
         raise AssertionError(f"ibn_pointwise disagrees with its plain version: {rec}")
     if timed:
@@ -421,8 +422,9 @@ def k1_edges(card: str) -> dict:
     """K1 against its plain version at ``K1_EDGES`` in fp32 and bf16, with
     the operands as they lie (``xT``/``wT``: transposed views of contiguous
     tensors, as the backward passes them), and two controls that the limit
-    must fail on the split-K products: one cluster rank's partial left out of
-    the sum, and the last K step of the last rank left unloaded."""
+    must fail on the split-K products, the plain version without the last
+    cluster rank's K range and without the last rank's last K step: the
+    faults of a partial left out of the sum and of a K step never loaded."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
     for m, k, n, la, lb in K1_EDGES:
@@ -436,19 +438,22 @@ def k1_edges(card: str) -> dict:
             got = ibn_conv.launch(a, b, bias, "relu")
             torch.cuda.synchronize()
             err = rel_err(got, want)[1]
-            _, splits, k_chunk = ibn_conv.plan(m, n, k, dtype, kbuild.device_info(0)[1],
-                                               ibn_conv._max_cluster(0))
+            (_, _, step), splits, k_chunk = ibn_conv.plan(
+                m, n, k, dtype, kbuild.device_info(0)[1], ibn_conv._max_cluster(0))
             rec = {"mkn": (m, k, n), "layout": (la, lb), "dtype": str(dtype)[6:],
                    "splits": splits, "k_chunk": k_chunk, "rel_err": err, "tol": TOL[dtype]}
             if err > TOL[dtype]:
                 raise AssertionError(f"ibn_pointwise disagrees with its plain version: {rec}")
             if splits > 1:
                 last = (k - 1) // k_chunk
-                rec["controls"] = {
-                    "rank_dropped": rel_err(ibn_conv.launch(a, b, bias, "relu", drop_rank=last),
-                                            want)[1],
-                    "last_k_step_unloaded": rel_err(
-                        ibn_conv.launch(a, b, bias, "relu", drop_last=last), want)[1]}
+                last_step = last * k_chunk + (k - 1 - last * k_chunk) // step * step
+                rec["controls"] = {}
+                for name, lo in (("rank_dropped", last * k_chunk),
+                                 ("last_k_step_unloaded", last_step)):
+                    cut = a.clone()
+                    cut[:, lo:] = 0
+                    rec["controls"][name] = rel_err(ibn_pointwise_ref(cut, b, bias, "relu"),
+                                                    want)[1]
                 if not min(rec["controls"].values()) > TOL[dtype]:
                     raise AssertionError(f"the limit passes a control: {rec}")
             out.append(rec)
@@ -518,10 +523,12 @@ def kernel_phase(card: str) -> dict:
     worst = max(max(r["fwd_rel_err"], r["dx_rel_err"], r["dw_rel_err"], r["db_rel_err"])
                 / r["tol"] for r in records.values())
     flips = sum(r["relu_mask_flips"] for r in records.values())
+    zeroed = sum(r["cotangent_zeroed"] for r in records.values())
     print(f"kernel: {len(records)} checks at {len(full)} full-width shapes (224 px, "
           f"batch 8) and {len(search)} search shapes (32 px, batch 64), forward and "
           f"backward; worst error {worst:.3g} of its tolerance; {flips} relu outputs on the "
-          f"other side of 0 from the plain version's, each within the limit of 0  [{card}]")
+          f"other side of 0 from the plain version's, each within the limit of 0 (relu's "
+          f"cotangent is 0 at the {zeroed} plain pre-activations there)  [{card}]")
 
     def totals(shapes):
         rs = [records[(s, "none", "fp32")] for s in shapes]
@@ -1572,22 +1579,10 @@ def llm_phase(card: str) -> dict:
     return out
 
 
-PHASES = {"kernel": kernel_phase, "model": model_phase, "search": search_phase,
-          "profile": profile_phase, "attention": attention_phase, "ssd": ssd_phase,
-          "gmm": gmm_phase, "serve": serve_phase, "serve_ssm": serve_ssm_phase,
-          "serve_moe": serve_moe_phase, "llm": llm_phase}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated phases to run (default: all); with fewer than "
-                         "all, no kernels line and no final ok line are printed")
     args = ap.parse_args()
-    phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases takes {','.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
               file=sys.stderr)
@@ -1616,22 +1611,21 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         return result
 
-    res = {}
-    for name in PHASES:
-        if name in phases:
-            res[name] = timed(name, PHASES[name])
-            torch.cuda.empty_cache()
+    kern = timed("kernel", kernel_phase)
+    model = timed("model", model_phase)
+    search = timed("search", search_phase)
+    prof = timed("profile", profile_phase)
+    attn = timed("attention", attention_phase)
+    ssd = timed("ssd", ssd_phase)
+    gmm_res = timed("gmm", gmm_phase)
+    serve = timed("serve", serve_phase)
+    torch.cuda.empty_cache()
+    serve_ssm = timed("serve_ssm", serve_ssm_phase)
+    torch.cuda.empty_cache()
+    serve_moe = timed("serve_moe", serve_moe_phase)
+    torch.cuda.empty_cache()
+    llm = timed("llm", llm_phase)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
-    if args.json:
-        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.json).write_text(json.dumps({"card": card, **res, "phase_s": phase_s},
-                                              indent=1, default=str))
-    if len(res) < len(PHASES):
-        print(f"chip_smoke: ran {','.join(res)} only; no kernels line")
-        return 0
-    kern, search, prof, attn, ssd, gmm_res, serve, serve_ssm, serve_moe = (
-        res[k] for k in ("kernel", "search", "profile", "attention", "ssd", "gmm", "serve",
-                         "serve_ssm", "serve_moe"))
 
     t = kern["search_totals"]
     dev = kern["device"]["sums"]["search"]
@@ -1642,18 +1636,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/ibn_conv.py:49",
         "launches": search["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": dev["fwd"]["ms"],
-        "plain_ms": dev["fwd"]["plain_ms"],
-        "bound_ms": dev["fwd"]["bound_ms"],
-        "bound_by": ("bytes" if dev["fwd"]["bound_bytes_ms"] >= dev["fwd"]["bound_ops_ms"]
-                     else "operations"),
-        "library_ms": dev["fwd"]["library_ms"],
-        "timing": "device only: the 36 search shapes' forward, CUDA graphs of 20 calls; "
-                  "library torch.addmm",
-        "host_issued_ms": t["ms"],
-        "host_issued_library_ms": t["library_ms"],
-        "backward_ms": {p: dev[p]["ms"] for p in ("dx", "dw")},
-        "backward_library_ms": {p: dev[p]["library_ms"] for p in ("dx", "dw")},
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "timing": "ms, plain_ms, library_ms: the 36 search shapes' forward as the host "
+                  "issues them (CUDA events around 20 calls); device_*: the same on the "
+                  "device alone (CUDA graphs of 20 calls); library torch.addmm",
+        "device_ms": dev["fwd"]["ms"],
+        "device_plain_ms": dev["fwd"]["plain_ms"],
+        "device_library_ms": dev["fwd"]["library_ms"],
+        "device_backward_ms": {p: dev[p]["ms"] for p in ("dx", "dw")},
+        "device_backward_library_ms": {p: dev[p]["library_ms"] for p in ("dx", "dw")},
         "launches_per_train_step": prof["launches_per_step"],
         "device_ms_per_train_step": prof["ibn_ms"],
         "max_rel_err_fwd": kern["max_rel_err_fwd"],
@@ -1705,8 +1700,12 @@ def main() -> int:
                      for name, r in gmm_res["main"].items()},
     }]}
     if args.json:
-        Path(args.json).write_text(json.dumps({"card": card, **res, "phase_s": phase_s,
-                                               "kernels": kernels}, indent=1, default=str))
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(
+            {"card": card, "kernel": kern, "model": model, "search": search,
+             "profile": prof, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
+             "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm,
+             "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -266,14 +266,11 @@ __device__ __forceinline__ void stage_products(const uint8_t* a, const uint8_t* 
 
 // One CTA: output tile (blockIdx.x / splits) of tiles_m x tiles_n (m fastest),
 // K range [rank * k_chunk, (rank + 1) * k_chunk) of a cluster of `splits`.
-// drop_rank / drop_last are the controls chip_smoke.py holds against the
-// limit: a rank whose partial the sum leaves out, a K step left unloaded
-// (-1: none).
 template <typename T, int BM, int BN, int KP, bool AK, bool BK_>
 __global__ void __launch_bounds__(Tile<T, BM, BN, KP>::THREADS)
 ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
        const T* __restrict__ bias, T* __restrict__ y, int M, int K, int N, int tiles_m,
-       int splits, int k_chunk, int act, int drop_rank, int drop_last) {
+       int splits, int k_chunk, int act) {
   using G = Tile<T, BM, BN, KP>;
   constexpr int ST = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -329,9 +326,8 @@ ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorM
         tma_load_2d(b_dst + p * G::BK * 128, map_b, n0 + p * G::PW, k0, full(s));
     }
   };
-  const int loaded = (drop_last >= 0 && rank == drop_last) ? nk - 1 : nk;
   if (tid == 0)
-    for (int s = 0; s < ST && s < loaded; ++s) issue(s, s);
+    for (int s = 0; s < ST && s < nk; ++s) issue(s, s);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -352,7 +348,7 @@ ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorM
   // in fp32 (round to nearest): the tensor cores' own accumulation spans
   // PROMOTE steps' sum, not the whole of K
   float part[G::MI][G::NI][4];
-  for (int kt = 0; kt < loaded; ++kt) {
+  for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % ST;
     mbar_wait(full(s), (kt / ST) & 1);
     const uint8_t* a = sbase + s * G::STAGE;
@@ -365,7 +361,7 @@ ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorM
           for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
     }
     stage_products<T, BM, BN, KP, AK, BK_>(a, a + G::A_BYTES, part, wm, wn, wk, grp, tig);
-    if (kt % PROMOTE == PROMOTE - 1 || kt == loaded - 1) {
+    if (kt % PROMOTE == PROMOTE - 1 || kt == nk - 1) {
 #pragma unroll
       for (int i = 0; i < G::MI; ++i)
 #pragma unroll
@@ -374,7 +370,7 @@ ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorM
           for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
     }
     __syncthreads();  // every warp is done with stage s
-    if (tid == 0 && kt + ST < loaded) issue(kt + ST, s);
+    if (tid == 0 && kt + ST < nk) issue(kt + ST, s);
   }
 
   if (G::WK == 1 && splits == 1) {
@@ -467,7 +463,6 @@ ibn_pw(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorM
     const uint32_t off = base + static_cast<uint32_t>((r * G::RED_PITCH + c) * 4);
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int q = 0; q < splits; ++q) {
-      if (q == drop_rank) continue;
       const float4 p = splits > 1 ? ld_cluster_f4(map_cluster(off, static_cast<uint32_t>(q)))
                                   : *reinterpret_cast<const float4*>(sbase + (off - base));
       v.x += p.x;
@@ -523,7 +518,7 @@ struct Args {
   void* y;
   int M, K, N;
   long long sa, sb;  // the outer stride of A and of B, in elements
-  int act, splits, k_chunk, drop_rank, drop_last;
+  int act, splits, k_chunk;
 };
 
 template <typename T, int BM, int BN, int KP, bool AK, bool BK_>
@@ -570,7 +565,7 @@ int launch_cfg(const Args& g, cudaStream_t stream) {
   cfg.numAttrs = g.splits > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, ta, tb, static_cast<const T*>(g.bias),
                            static_cast<T*>(g.y), g.M, g.K, g.N, tiles_m, g.splits, g.k_chunk,
-                           g.act, g.drop_rank, g.drop_last);
+                           g.act);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -591,18 +586,16 @@ int launch_layout(const Args& g, int a_kmajor, int b_kmajor, cudaStream_t s) {
 // tile: 0 for 64 x 64, 1 for 32 x 32, 2 for 32 x 32 with K steps of two
 // panels (1 and 2: fp32 only). splits: CTAs per cluster along K (1, 2, 4, 8
 // or 16), each taking k_chunk of K (a multiple of the K step: 32 for fp32
-// tiles 0 and 1, 64 for the others). drop_rank,
-// drop_last: -1, or a control that must fail (a rank's partial left out of
-// the sum, the last K step of a rank left unloaded). Returns a CUDA error code
-// (0 when the launch was accepted).
+// tiles 0 and 1, 64 for the others). Returns a CUDA error code (0 when the
+// launch was accepted).
 extern "C" int ibn_pointwise_launch(int dtype, const void* a, const void* b, const void* bias,
                                     void* y, int M, int K, int N, long long sa, long long sb,
                                     int a_kmajor, int b_kmajor, int act, int tile, int splits,
-                                    int k_chunk, int drop_rank, int drop_last, void* stream) {
+                                    int k_chunk, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > 16 || (splits & (splits - 1)) ||
       k_chunk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args g{a, b, bias, y, M, K, N, sa, sb, act, splits, k_chunk, drop_rank, drop_last};
+  const Args g{a, b, bias, y, M, K, N, sa, sb, act, splits, k_chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && tile == 0) return launch_layout<float, 64, 64, 1>(g, a_kmajor, b_kmajor, s);
   if (dtype == 0 && tile == 1) return launch_layout<float, 32, 32, 1>(g, a_kmajor, b_kmajor, s);

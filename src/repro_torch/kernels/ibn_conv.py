@@ -78,8 +78,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ibn_pointwise_launch.argtypes = [
-            i32, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, i32, i32, i32, i32, i32,
-            i32, vp,
+            i32, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, i32, i32, i32, i32, vp,
         ]
         lib.ibn_pointwise_launch.restype = i32
         lib.ibn_pointwise_max_cluster.argtypes = []
@@ -152,13 +151,11 @@ def _operand(t: torch.Tensor, k_axis: int) -> tuple[torch.Tensor, bool, int]:
     return (buf.t() if k_axis == 0 else buf), True, buf.stride(0)
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], act: str,
-           *, drop_rank: int = -1, drop_last: int = -1) -> torch.Tensor:
+def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           act: str) -> torch.Tensor:
     """One launch of the kernel: ``act(x @ w + b)`` into a new (N, Cout)
     tensor. x and w may be strided views; b (Cout,) or None. Raises on
-    anything the kernel does not take. ``drop_rank``/``drop_last`` are the
-    controls chip_smoke.py holds against the limit (a cluster rank's partial
-    left out of the sum, a rank's last K step left unloaded); -1 for none."""
+    anything the kernel does not take."""
     global LAUNCHES
     sms = kbuild.require_sm90(x, "ibn_pointwise")
     if act not in _ACTS:
@@ -186,7 +183,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], act: str
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
     args = (_DTYPES[x.dtype], a.data_ptr(), bt.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), m, k, n, sa, sb, int(a_kmajor), int(b_kmajor), _ACTS[act],
-            TILES[x.dtype][body], splits, k_chunk, drop_rank, drop_last)
+            TILES[x.dtype][body], splits, k_chunk)
     if index == torch.cuda.current_device():
         err = lib.ibn_pointwise_launch(*args, torch.cuda.current_stream(index).cuda_stream)
     else:

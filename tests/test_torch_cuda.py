@@ -135,22 +135,25 @@ def test_kernel_edges_match_plain_version_on_card(m, k, n, la, lb, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n,la,lb", [K1_EDGES[0], K1_EDGES[2]])
 def test_kernel_split_k_controls_fail_the_limit(m, k, n, la, lb, dtype):
-    """The split-K sum is checked, not assumed: leaving one cluster rank's
-    partial out of it, or the last K step of the last rank unloaded, breaks
-    the limit that the kernel holds."""
+    """The limit is tight enough to see a fault in the split-K sum: the
+    product without one cluster rank's K range (the first, the last), or
+    without the last K step of the last rank, breaks it."""
     _need_sm90()
     td = getattr(torch, dtype)
     a, b, bias = _k1_operands(m, k, n, la, lb, td)
     index = a.device.index
-    _, splits, k_chunk = ibn_conv.plan(m, n, k, td, kbuild.device_info(index)[1],
-                                       ibn_conv._max_cluster(index))
+    (_, _, step), splits, k_chunk = ibn_conv.plan(m, n, k, td, kbuild.device_info(index)[1],
+                                                  ibn_conv._max_cluster(index))
     assert splits > 1
     want = ibn_pointwise_ref(a, b, bias, "none").float()
     scale = max(1.0, want.abs().max().item())
     last = (k - 1) // k_chunk
-    for control in ({"drop_rank": last}, {"drop_rank": 0}, {"drop_last": last}):
-        got = ibn_conv.launch(a, b, bias, "none", **control).float()
-        assert (got - want).abs().max().item() / scale > TOL[dtype], control
+    last_step = last * k_chunk + (k - 1 - last * k_chunk) // step * step
+    for lo, hi in ((last * k_chunk, k), (0, k_chunk), (last_step, k)):
+        cut = a.clone()
+        cut[:, lo:hi] = 0
+        ctl = ibn_pointwise_ref(cut, b, bias, "none").float()
+        assert (ctl - want).abs().max().item() / scale > TOL[dtype], (lo, hi)
     got = ibn_conv.launch(a, b, bias, "none").float()
     assert (got - want).abs().max().item() / scale < TOL[dtype]
     assert torch.equal(ibn_conv.launch(a, b, bias, "none").float(), got)  # a fixed order
