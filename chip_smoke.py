@@ -44,9 +44,16 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                hubert-xlarge's and gemma-2b's heads;
 7. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
-               ragged S 1000, and zamba2-7b's H 112 N 64, and the plain version
-               against the sequential recurrence; times kernel and plain
-               version (no single PyTorch call computes the scan);
+               ragged S 1000, zamba2-7b's H 112 N 64, and the cluster's edges
+               (S 4096 and 8192, S 2300, a cluster of 8, one chunk, G 4 with
+               a ragged tail) in mamba2's dt and A ranges, with two controls
+               that the fp32 limit must fail (the plain version run apart on
+               the two sides of the first chunk boundary, and of the first
+               group boundary), and the plain version against the sequential
+               recurrence; times kernel and plain version (no single PyTorch
+               call computes the scan) as the host issues them and on the
+               device alone (CUDA graphs), at mamba2's and zamba2's shapes,
+               and the wrapper's host µs per call;
 8. gmm       — holds ``gmm`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, ragged edges, strided views, the
                bf16 body's edges (C 1 to 8192, D off the K steps, F under one
@@ -185,6 +192,14 @@ SSM_ARCH, MOE_ARCH, HYBRID_ARCH = "mamba2_370m", "qwen2_moe_a2_7b", "zamba2_7b"
 # at a ragged S, and zamba2-7b's widths (H 112, N 64)
 SERVE_SSD = (SERVE_BATCH, PROMPT, 32, 64, 1, 128, 256)
 ZAMBA_SSD = (2, 512, 112, 64, 1, 64, 256)
+# the cluster's edges, drawn in mamba2's dt and A ranges so that the state
+# passed between chunks shows in y: S 4096 and 8192 (16 and 32 chunks,
+# clusters of 2 walking 8 and 16 groups), S 2300 (9 chunks, not a multiple
+# of the cluster), B 1 H 8 S 4096 (few heads: a cluster of 8 walking 2
+# groups), one chunk (S <= Q), and G 4 with a ragged tail
+SSD_EDGES = [(2, 4096, 32, 64, 1, 128, 256), (2, 8192, 32, 64, 1, 128, 256),
+             (2, 2300, 32, 64, 1, 128, 256), (1, 4096, 8, 64, 1, 128, 256),
+             (2, 200, 32, 64, 1, 128, 256), (2, 1100, 32, 64, 4, 128, 256)]
 # serve_ssm: decode steps over the prompt's first tokens from a zero cache,
 # held against a forward over those tokens: in fp32 compute (the recurrence
 # against the chunked scan, fp32 through 48 layers) at 1e-3, and the timed
@@ -1033,34 +1048,83 @@ def ssd_bound_parts_ms(b, s, h, p, g, n, chunk, dtype) -> tuple[float, float]:
             float(b * h * ops) / PEAK_FLOP_PER_S[dtype] * 1e3)
 
 
-def ssd_inputs(b, s, h, p, g, n, dtype, gen):
-    """x, dt = softplus(normal), A = -exp(normal), and B, C as views into
-    one (B, S, 2GN) tensor, as the model passes them."""
+def ssd_inputs(b, s, h, p, g, n, dtype, gen, ranges: str = "normal"):
+    """x, and B, C as views into one (B, S, 2GN) tensor, as the model passes
+    them; dt and A as tests/test_kernels.py draws them (``ranges`` "normal":
+    dt = softplus(normal), A = -exp(normal), which decay the state by about
+    e^-1 a position) or in mamba2's ranges ("model": dt = softplus(d + 0.5
+    normal) with softplus(d) log-uniform in [1e-3, 1e-1] per head, A
+    uniform in [-16, -1], as ``models.ssm`` initialises dt_bias and A_log),
+    under which the state carries across chunks."""
     x = torch.randn((b, s, h, p), generator=gen, device=DEV).to(dtype)
-    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=DEV))
-    A = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
+    if ranges == "model":
+        d0 = torch.exp(torch.empty((h,), device=DEV).uniform_(math.log(1e-3), math.log(1e-1),
+                                                              generator=gen))
+        dt = torch.nn.functional.softplus(
+            torch.log(torch.expm1(d0)) + 0.5 * torch.randn((b, s, h), generator=gen, device=DEV))
+        A = -torch.empty((h,), device=DEV).uniform_(1.0, 16.0, generator=gen)
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=DEV))
+        A = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
     bc = torch.randn((b, s, 2 * g * n), generator=gen, device=DEV).to(dtype)
     return x, dt, A, bc[..., :g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n)
 
 
-def check_ssd(shape, dtype, gen, timed: bool) -> dict:
-    """ssd_scan against its plain version (ref.ssd_chunked) on the card."""
+def ssd_rel(y, st, want_y, want_st) -> tuple[float, float]:
+    """(y's max error over max |plain y|, the state's over max |plain state|)."""
+    return ((y.float() - want_y.float()).abs().max().item() / want_y.float().abs().max().item(),
+            (st - want_st).abs().max().item() / want_st.abs().max().item())
+
+
+def ssd_split(x, dt, A, Bm, Cm, chunk: int, at: int):
+    """The plain version run apart on positions [0, at) and [at, S), y
+    concatenated and the second run's state: the scan with the state passed
+    across ``at`` (a chunk boundary) dropped."""
+    y1, _ = ssd_chunked(x[:, :at], dt[:, :at], A, Bm[:, :at], Cm[:, :at], chunk)
+    y2, st2 = ssd_chunked(x[:, at:], dt[:, at:], A, Bm[:, at:], Cm[:, at:], chunk)
+    return torch.cat([y1, y2], dim=1), st2
+
+
+def check_ssd(shape, dtype, gen, timed: bool, ranges: str = "normal") -> dict:
+    """ssd_scan against its plain version (ref.ssd_chunked) on the card; in
+    fp32, in mamba2's ranges, where a (batch, head) has more than one chunk,
+    the two split controls (``ssd_split`` at the first chunk boundary, and
+    at the first group boundary where there are two groups), which the limit
+    must fail. (Under the "normal" draws the state decays by about e^-256
+    over a chunk of 256, so no control could fail there.)"""
     b, s, h, p, g, n, chunk = shape
-    x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, dtype, gen)
+    x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, dtype, gen, ranges)
     y, st = ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk)
     want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
     err = rel_err(y, want_y)[0]
-    rel = err / want_y.float().abs().max().item()
-    st_rel = (st - want_st).abs().max().item() / want_st.abs().max().item()
-    rec = {"shape": shape, "dtype": str(dtype)[6:], "max_abs_err": err, "rel_err": rel,
-           "state_rel_err": st_rel, "tol": SSD_TOL[dtype]}
+    rel, st_rel = ssd_rel(y, st, want_y, want_st)
+    pl = ssd_scan.plan(b, s, h, p, n, chunk, dtype, kbuild.device_info(0)[1])
+    rec = {"shape": shape, "dtype": str(dtype)[6:], "ranges": ranges, "max_abs_err": err,
+           "rel_err": rel, "state_rel_err": st_rel, "tol": SSD_TOL[dtype],
+           "plan": dataclasses.asdict(pl)}
     finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
     if not (finite and rel <= SSD_TOL[dtype] and st_rel <= SSD_TOL[torch.float32]):
         raise AssertionError(f"ssd_scan disagrees with its plain version: {rec}")
+    if dtype == torch.float32 and ranges == "model" and pl.chunks > 1:
+        q = pl.chunk
+        cuts = {"rank_state_dropped": q}
+        if pl.groups > 1:
+            cuts["group_carry_dropped"] = pl.cluster * q
+        rec["controls"] = {}
+        for name, at in cuts.items():
+            cy, cst = ssd_split(x, dt, A, Bm, Cm, chunk, at)
+            rec["controls"][name] = max(ssd_rel(cy, cst, want_y, want_st)) / SSD_TOL[dtype]
+        if not min(rec["controls"].values()) > 1.0:
+            raise AssertionError(f"the fp32 limit passes a split control: {rec}")
     if timed:
         rec["ms"] = time_ms(lambda: ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk))
         rec["plain_ms"] = time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk), iters=5)
+        rec["device_ms"], rec["device_plain_ms"] = graph_ms(
+            [lambda: ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk),
+             lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk)], calls=10, rounds=2)
+        rec["host_us"] = host_us(lambda: ssd_scan.launch(x, dt, A, Bm, Cm, chunk=chunk),
+                                 calls=100)
         rec["library_ms"] = None  # no single PyTorch call computes the chunk scan
         rec["bound_bytes_ms"], rec["bound_ops_ms"] = ssd_bound_parts_ms(*shape, dtype)
         rec["bound_ms"] = max(rec["bound_bytes_ms"], rec["bound_ops_ms"])
@@ -1086,20 +1150,42 @@ def ssd_phase(card: str) -> dict:
     for shape in ((b, 1000, h, p, g, n, chunk), ZAMBA_SSD):
         for dtype in (torch.float32, torch.bfloat16):
             records.append(check_ssd(shape, dtype, gen, timed=False))
+    edges = []
+    for shape in SSD_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            edges.append(check_ssd(shape, dtype, gen, timed=False, ranges="model"))
+    records += edges
     records.append(check_ssd(SERVE_SSD, torch.float32, gen, timed=False))
     main = check_ssd(SERVE_SSD, torch.bfloat16, gen, timed=True)
     records.append(main)
+    zamba = check_ssd(ZAMBA_SSD, torch.bfloat16, gen, timed=True)
+    records.append(zamba)
     worst = max(r["rel_err"] / r["tol"] for r in records)
+    worst_state = max(r["state_rel_err"] for r in records) / SSD_TOL[torch.float32]
+    controls = [(r["shape"], name, v) for r in records
+                for name, v in r.get("controls", {}).items()]
     print(f"ssd: {len(records)} checks against the plain version (fp32 and bf16; "
-          f"tests/test_kernels.py's shapes, ragged S 1000, zamba2's H 112 N 64); worst "
-          f"error {worst:.3g} of its tolerance; plain vs sequential recurrence "
+          f"tests/test_kernels.py's shapes, ragged S 1000, zamba2's H 112 N 64, the cluster's "
+          f"edges in mamba2's dt and A ranges); worst y error {worst:.3g} of its tolerance, "
+          f"worst state error {worst_state:.3g} of 1e-3; plain vs sequential recurrence "
           f"{seq_err:.3g} (tolerance {SEQ_TOL})  [{card}]")
-    print(f"ssd: B {b} S {s} H {h} P {p} G {g} N {n} chunk {chunk} bf16: kernel "
-          f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, no library call, bound "
-          f"{main['bound_ms']:.4f} ms ({main['bound_by']}; bytes {main['bound_bytes_ms']:.4f}, "
-          f"operations {main['bound_ops_ms']:.4f}); y {main['rel_err']:.3g} of max |y|, "
-          f"state {main['state_rel_err']:.3g}  [{card}]")
-    return {"records": records, "main": main, "seq_err": seq_err}
+    for r in edges:
+        pl = r["plan"]
+        print(f"ssd:   edge {r['shape']} {r['dtype']}: cluster {pl['cluster']} x {pl['groups']} "
+              f"groups, y {r['rel_err']:.3g} of max |y|, state {r['state_rel_err']:.3g}")
+    print("ssd: split controls, each as a multiple of the fp32 limit (must exceed 1): "
+          + "; ".join(f"{shape} {name} {v:.3g}x" for shape, name, v in controls) + f"  [{card}]")
+    for label, r in (("mamba2-370m prefill", main), ("zamba2-7b", zamba)):
+        bb, ss, hh, pp, gg, nn, qq = r["shape"]
+        print(f"ssd: {label} B {bb} S {ss} H {hh} P {pp} G {gg} N {nn} chunk {qq} bf16 "
+              f"(cluster {r['plan']['cluster']}, {r['plan']['ctas']} CTAs): kernel "
+              f"{r['ms']:.4f} ms host-issued, {r['device_ms']:.4f} ms on the device alone; plain "
+              f"{r['plain_ms']:.4f} / {r['device_plain_ms']:.4f} ms; no library call; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, "
+              f"operations {r['bound_ops_ms']:.4f}); wrapper {r['host_us']:.2f} µs of host time "
+              f"a call; y {r['rel_err']:.3g} of max |y|, state {r['state_rel_err']:.3g}  [{card}]")
+    return {"records": records, "main": main, "zamba": zamba, "seq_err": seq_err,
+            "controls": controls}
 
 
 def gmm_bound_parts_ms(e, c, d, f, dtype) -> tuple[float, float]:
@@ -1680,6 +1766,16 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD chunk scan",
         "launches_per_prefill": serve_ssm["prefill_launches"],
+        "timing": "ms, plain_ms: mamba2-370m's prefill scan (B 8, S 1024, H 32, P 64, N 128, "
+                  "chunk 256, bf16) as the host issues it (CUDA events around 20 calls); "
+                  "device_*: the same on the device alone (CUDA graphs of 10 calls)",
+        "device_ms": ssd["main"]["device_ms"],
+        "device_plain_ms": ssd["main"]["device_plain_ms"],
+        "host_us": ssd["main"]["host_us"],
+        "plan": ssd["main"]["plan"],
+        "zamba2": {k: ssd["zamba"][k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                                 "device_plain_ms", "bound_ms")},
+        "controls": {f"{shape} {name}": v for shape, name, v in ssd["controls"]},
     }, {
         "name": "gmm",
         "route": "cuda",

@@ -2,11 +2,13 @@
 // shared-memory addresses, wgmma descriptors, mbarriers (with a trap instead
 // of a hang), TMA loads of 2-, 3- and 4-d maps (one form per rank, and a
 // cluster multicast), thread-block cluster ranks, barriers and distributed
-// shared memory, the wgmma instructions the kernels issue, and the driver's
-// cuTensorMapEncodeTiled. Included by flash_attention.cu, gmm.cu and
-// ibn_pointwise.cu; each is built into its own library, so nothing here is
-// shared between libraries at run time. build.py digests this header with
-// every source that includes it, so editing it rebuilds them.
+// shared memory, the wgmma instructions the kernels issue, the warp-level
+// mma.sync products with the 3xTF32 split, fp32 / bf16 conversions, and the
+// driver's cuTensorMapEncodeTiled. Included by flash_attention.cu, gmm.cu,
+// ibn_pointwise.cu and ssd_scan.cu; each is built into its own library, so
+// nothing here is shared between libraries at run time. build.py digests
+// this header with every source that includes it, so editing it rebuilds
+// them.
 #pragma once
 
 #include <cuda.h>
@@ -80,6 +82,50 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// ---- fp32 / bf16 conversions
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// ---- warp-level mma.sync on the tensor cores
+
+// hi and lo parts of v for 3xTF32: hi is v with the 13 mantissa bits that
+// tf32 drops cleared, lo = v - hi exactly; the tensor cores read the tf32
+// part of each register, so lo keeps the next 11 bits of v, truncated: this
+// gives up a bit of lo for a mask and a subtraction in place of two
+// cvt.rna.tf32.f32, which slowed every K step.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// D += A B, m16n8k8, tf32 in, fp32 sum
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += A B, m16n8k16, bf16 in, fp32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---- thread-block clusters and distributed shared memory

@@ -8,11 +8,20 @@ C (B, S, G, N), chunks of ``min(chunk, S)`` positions with the tail padded
 by zeros, y (B, S, H, P) in x's type and the final state (B, H, P, N) in
 fp32. x, B and C are fp32 or bf16 (the same type), P ≤ 64, N ≤ 128, the
 chunk ≤ 4096. The kernel source is ``csrc/ssd_scan.cu``; its header says
-what bounds it on the card and how it is laid out.
+what bounds it on the card and how it is laid out: a (batch, head)'s chunks
+split over the CTAs of a thread-block cluster, the state passed from rank to
+rank in order through distributed shared memory, B, C and x through TMA in
+64-position tiles, and the chunk products on the tensor cores.
 
-x, dt, B and C are read through their strides (unit stride along the last
-dim), so the model's B and C, which are views into one projection, are
-passed without a copy; head h reads group h // (H / G).
+``plan`` gives what the launcher takes for a shape: the cluster size, the
+groups of chunks each CTA walks, the ring's stages, the C buffers and the
+shared memory a CTA uses. One launch per call whatever the shape.
+
+x, B and C are read through their strides (unit stride along the last dim)
+where a TMA map can (start and strides on 16 bytes), so the model's B and C,
+which are views into one projection, are passed without a copy; head h reads
+group h // (H / G). A tensor a map cannot read is copied into padded rows.
+dt is read through any strides.
 
 Build: at first use, ``kernels.build`` compiles the source into a shared
 library with a plain C interface under ``build/kernels/``, loaded with
@@ -32,11 +41,14 @@ the card still launches the kernel; a backward kernel is later work.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.common import ceil_div, round_up
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
@@ -47,8 +59,88 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 LAUNCHES = 0
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 4096
+#: CTAs of a cluster that share a (batch, head)'s chunks, at most (portable)
+MAX_CLUSTER = 8
+#: shared memory a block may take on an H100, bytes
+MAX_SMEM = 232448
+#: (ring stages, C buffers) when the ring cannot hold a whole chunk's B and x
+#: tiles, most first: the first whose shared memory fits
+BUFFERS = ((3, 2), (2, 2), (2, 1))
+#: the kernel's tiles: positions of a B or x tile, rows of a C tile, P padded
+TJ, TI, PW = 64, 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What one launch runs: ``chunk`` positions a chunk (``min(chunk, S)``),
+    ``chunks`` of them per (batch, head), ``cluster`` CTAs per (batch, head)
+    walking ``groups`` groups of ``cluster`` chunks (rank r owns chunk
+    ``g * cluster + r`` of group g; ranks past the last chunk only pass the
+    state on), ``stages`` ring stages of B and x tiles (``resident`` when
+    they hold a whole chunk, loaded once; else the tiles stream through them
+    and the y pass loads them again), ``cbufs`` C buffers, ``smem`` bytes of
+    shared memory a CTA, ``ctas`` in all."""
+    chunk: int
+    chunks: int
+    cluster: int
+    groups: int
+    stages: int
+    resident: bool
+    cbufs: int
+    smem: int
+    ctas: int
+
+
+def smem_bytes(n: int, chunk: int, dtype: torch.dtype, stages: int, cbufs: int) -> int:
+    """A CTA's shared memory for state size ``n`` and a chunk of ``chunk``
+    positions: the ring, the C buffers, the (P, N) fp32 state, two floats a
+    position over the chunk, 64 bytes of scalars, the mbarriers and 1024
+    bytes to align the base. ``Layout`` in csrc/ssd_scan.cu computes the
+    same."""
+    e = torch.empty((), dtype=dtype).element_size()
+    nw = 64 if n <= 64 else 128
+    stage = TJ * (PW + nw) * e
+    c_tile = TI * nw * e
+    state = PW * (nw + 4) * 4
+    qw = round_up(chunk, TJ)
+    return stages * stage + cbufs * c_tile + state + 8 * qw + 64 + 8 * (stages + cbufs) + 1024
+
+
+@functools.lru_cache(maxsize=1024)  # the model's shapes repeat at every layer
+def plan(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
+         sms: int = 132) -> Plan:
+    """The launch of one scan (see ``Plan``) on a card of ``sms`` SMs. A
+    (batch, head) with more than one chunk takes a cluster of 2 CTAs; of 4
+    or 8 only while the CTAs would fill less than a quarter of the SMs; never
+    more than its chunks, rounded up to a power of two, nor ``MAX_CLUSTER``.
+    A longer sequence walks its chunks in groups of that many. (On an H100,
+    clusters of 2 walking more groups were faster than clusters of 4 or 8
+    at mamba2-370m's prefill and at B 2 S 4096, and clusters of 8 the
+    fastest at B 1 H 8 S 4096; PERF.md, scripts/ssd_scan_variants.py.) The
+    ring holds
+    the chunk's tiles (resident) where that fits ``MAX_SMEM`` with two C
+    buffers or one; else the buffers are the first of ``BUFFERS`` that
+    fits. Raises on a shape the kernel does not take."""
+    if min(b, s, h, p, n, chunk) <= 0 or p > MAX_P or n > MAX_N:
+        raise ValueError(f"ssd_scan takes head_dim <= {MAX_P} and state <= {MAX_N}, "
+                         f"got b {b} s {s} h {h} p {p} n {n} chunk {chunk}")
+    q = min(chunk, s)
+    if q > MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    nc = ceil_div(s, q)
+    cluster = 1
+    while cluster < min(nc, MAX_CLUSTER) and (cluster < 2 or 4 * b * h * cluster < sms):
+        cluster *= 2
+    tiles = ceil_div(q, TJ)
+    for stages, cbufs in ((tiles, 2), (tiles, 1)) + BUFFERS:
+        smem = smem_bytes(n, q, dtype, stages, cbufs)
+        if smem <= MAX_SMEM:
+            return Plan(q, nc, cluster, ceil_div(nc, cluster), stages, stages >= tiles, cbufs,
+                        smem, b * h * cluster)
+    raise ValueError(f"ssd_scan: no buffers fit {MAX_SMEM} bytes at n {n}, chunk {q}, "
+                     f"{dtype}")
 
 
 def build() -> Path:
@@ -63,11 +155,42 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ssd_scan_launch.argtypes = [
-            i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp,
+            i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+            vp, vp,
         ]
         lib.ssd_scan_launch.restype = i32
+        lib.ssd_scan_smem.argtypes = [i32, i32, i32, i32, i32]
+        lib.ssd_scan_smem.restype = i32
         _lib = lib
     return _lib
+
+
+def _tma_strides(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
+    """The (batch, position, head or group) element strides a TMA map reads
+    ``t`` (B, S, heads, inner) through: each on 16 bytes, and the start too;
+    an axis of one element takes any such stride. None when ``t`` has none."""
+    align = 16 // t.element_size()
+    if t.data_ptr() % 16 or t.stride(3) != 1:
+        return None
+    out = []
+    for axis in range(3):
+        stride = t.stride(axis) if t.shape[axis] > 1 else round_up(t.shape[3], align)
+        if stride <= 0 or stride % align:
+            return None
+        out.append(stride)
+    return tuple(out)
+
+
+def _operand(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """(t, its strides) where a TMA map can read ``t`` as it lies; else a copy
+    whose rows are padded to 16 bytes (a fresh allocation), and its strides."""
+    strides = _tma_strides(t)
+    if strides is not None:
+        return t, strides
+    align = 16 // t.element_size()
+    buf = t.new_empty(t.shape[:3] + (round_up(t.shape[3], align),))[..., :t.shape[3]]
+    buf.copy_(t)
+    return buf, _tma_strides(buf)
 
 
 def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -75,7 +198,7 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """One launch of the kernel. Returns (y, final_state) as new contiguous
     tensors. Raises on anything the kernel does not take."""
     global LAUNCHES
-    kbuild.require_sm90(x, "ssd_scan")
+    sms = kbuild.require_sm90(x, "ssd_scan")
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16 x, got {x.dtype}")
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4 or B.shape != C.shape:
@@ -106,15 +229,23 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan needs unit stride along {what}'s last dim, got "
                              f"strides {t.stride()}")
+    pl = plan(b, s, h, p, n, q, x.dtype, sms)
+    xk, sx = _operand(x)
+    bk, sb = _operand(B)
+    ck, sc = _operand(C)
     y = torch.empty((b, s, h, p), device=x.device, dtype=x.dtype)
     state = torch.empty((b, h, p, n), device=x.device, dtype=torch.float32)
-    strides = (ctypes.c_longlong * 15)(*(st for t in (x, y, dt, B, C) for st in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 15)(*sx, *y.stride()[:3], *dt.stride(), *sb, *sc)
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan_launch(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, q, strides,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    index = x.device.index
+    args = (_DTYPES[x.dtype], xk.data_ptr(), dt.data_ptr(), A.data_ptr(), bk.data_ptr(),
+            ck.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, q, pl.cluster,
+            pl.stages, pl.cbufs, strides)
+    if index == torch.cuda.current_device():
+        err = lib.ssd_scan_launch(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = lib.ssd_scan_launch(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

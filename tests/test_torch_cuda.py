@@ -292,13 +292,20 @@ def test_hybrid_prefill_on_card_launches_attention_once_per_shared_block():
 
 
 # ssd_scan: tests/test_kernels.py's shapes, a ragged tail with G > 1, a chunk
-# longer than S, mamba2-370m's widths at a ragged S, and zamba2-7b's;
+# longer than S, mamba2-370m's widths at a ragged S, and zamba2-7b's; then the
+# cluster's edges: S 4096 and 8192 (16 and 32 chunks over groups of a
+# cluster), S 2300 (9 chunks, not a multiple of the cluster), B 1 H 8 S 4096
+# (a cluster of 8), one chunk (S <= Q), G 4 with a ragged tail;
 # (b, s, h, p, g, n, chunk)
 SSD_SHAPES = [
     (2, 64, 4, 16, 1, 32, 16), (1, 128, 4, 8, 2, 16, 32), (2, 96, 2, 32, 1, 64, 32),
     (1, 48, 8, 16, 4, 8, 48), (1, 37, 4, 16, 2, 16, 16), (2, 20, 2, 8, 1, 8, 64),
     (2, 1000, 32, 64, 1, 128, 256), (1, 300, 112, 64, 1, 64, 256),
+    (2, 4096, 32, 64, 1, 128, 256), (2, 8192, 32, 64, 1, 128, 256),
+    (2, 2300, 32, 64, 1, 128, 256), (1, 4096, 8, 64, 1, 128, 256),
+    (2, 200, 32, 64, 1, 128, 256), (2, 1100, 32, 64, 4, 128, 256),
 ]
+SSD_EDGES = SSD_SHAPES[8:]
 # relative to max |plain value|: fp32, the chunk's cumsum is a scan in
 # another order and the products sum in another order, which moves
 # exp(cs_i - cs_j) by ~1e-5 where |cs| reaches hundreds; bf16 rounds y to 8
@@ -306,14 +313,25 @@ SSD_SHAPES = [
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
 
-def _ssd_inputs(b, s, h, p, g, n, dtype, seed=6):
-    """x, dt (softplus of a normal), A (-exp of a normal) and B, C as views
-    into one (B, S, 2GN) tensor, as the model passes them."""
+def _ssd_inputs(b, s, h, p, g, n, dtype, seed=6, ranges="normal"):
+    """x, dt, A and B, C as views into one (B, S, 2GN) tensor, as the model
+    passes them. ``ranges`` "normal": dt softplus of a normal, A -exp of a
+    normal (a decay of about e^-1 a position); "model": mamba2's ranges
+    (dt = softplus(d + 0.5 normal) with softplus(d) log-uniform in [1e-3,
+    1e-1] per head, A uniform in [-16, -1]), under which the state carries
+    across chunks."""
     rng = np.random.default_rng(seed)
     td = getattr(torch, dtype)
     x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).cuda().to(td)
-    dt = torch.from_numpy(np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)).cuda()
-    A = torch.from_numpy((-np.exp(rng.normal(size=(h,)))).astype(np.float32)).cuda()
+    if ranges == "model":
+        d0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(h,)))
+        dt = np.log1p(np.exp(np.log(np.expm1(d0)) + 0.5 * rng.normal(size=(b, s, h))))
+        A = -rng.uniform(1.0, 16.0, size=(h,))
+    else:
+        dt = np.log1p(np.exp(rng.normal(size=(b, s, h))))
+        A = -np.exp(rng.normal(size=(h,)))
+    dt = torch.from_numpy(dt.astype(np.float32)).cuda()
+    A = torch.from_numpy(A.astype(np.float32)).cuda()
     bc = torch.from_numpy(rng.normal(size=(b, s, 2 * g * n)).astype(np.float32)).cuda().to(td)
     return x, dt, A, bc[..., :g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n)
 
@@ -338,6 +356,59 @@ def test_ssd_scan_matches_plain_version_on_card(b, s, h, p, g, n, chunk, dtype):
     assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
     assert _rel_to_max(y, want_y) < SSD_TOL[dtype]
     assert _rel_to_max(st, want_st) < SSD_TOL["float32"]  # the state is fp32 in both
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [e for e in SSD_EDGES if e[1] > e[6]])
+def test_ssd_scan_split_controls_fail_the_limit_while_the_kernel_passes(b, s, h, p, g, n, chunk):
+    """In mamba2's dt and A ranges, fp32: the kernel holds the limit, and two
+    controls built from the plain version fail it: the scan run apart on the
+    two sides of the first chunk boundary (rank 0's state dropped) and of
+    the first group boundary (the carry between groups dropped)."""
+    _need_sm90()
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, "float32", ranges="model")
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    limit = SSD_TOL["float32"]
+    assert _rel_to_max(y, want_y) < limit and _rel_to_max(st, want_st) < limit
+    pl = tssd.plan(b, s, h, p, n, chunk, torch.float32, kbuild.device_info(x.device.index)[1])
+    assert pl.cluster > 1 and pl.groups > 1
+    for at in (chunk, pl.cluster * chunk):
+        y1, _ = ssd_chunked(x[:, :at], dt[:, :at], A, Bm[:, :at], Cm[:, :at], chunk)
+        y2, st2 = ssd_chunked(x[:, at:], dt[:, at:], A, Bm[:, at:], Cm[:, at:], chunk)
+        control = max(_rel_to_max(torch.cat([y1, y2], dim=1), want_y), _rel_to_max(st2, want_st))
+        assert control > limit, (at, control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_takes_dt_of_either_sign(dtype):
+    """The kernel computes the plain version for any dt, not only the
+    model's softplus: dt of either sign and exact zeros, over two groups of
+    a cluster."""
+    _need_sm90()
+    b, s, h, p, g, n, chunk = 1, 1100, 8, 64, 2, 128, 256
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype, ranges="model")
+    rng = np.random.default_rng(9)
+    dt = torch.from_numpy((0.02 * rng.normal(size=(b, s, h))).astype(np.float32)).cuda()
+    dt[:, ::7] = 0.0
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert _rel_to_max(y, want_y) < SSD_TOL[dtype]
+    assert _rel_to_max(st, want_st) < SSD_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_ssd_scan_plan_is_what_the_launcher_lays_out():
+    """``ssd_scan.plan``'s shared memory is the kernel's own layout (the C
+    entry point ``ssd_scan_smem``) for every shape the card tests run."""
+    _need_sm90()
+    lib = tssd._library()
+    for b, s, h, p, g, n, chunk in SSD_SHAPES:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            pl = tssd.plan(b, s, h, p, n, chunk, dtype)
+            assert lib.ssd_scan_smem(code, n, pl.chunk, pl.stages, pl.cbufs) == pl.smem
 
 
 @pytest.mark.cuda

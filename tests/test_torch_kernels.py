@@ -190,7 +190,7 @@ def test_library_path_digests_the_headers_a_source_includes(tmp_path):
     assert second != first
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nconstexpr int A = 6;\n')
     assert kbuild.library_path(src) not in (first, second)
-    # the port's kernels: the redesigned ones include the shared Hopper header
+    # the port's kernels: all four include the shared Hopper header
     csrc = Path(ibn_conv.SOURCE).parent
-    for name in ("ibn_pointwise.cu", "gmm.cu", "flash_attention.cu"):
+    for name in ("ibn_pointwise.cu", "gmm.cu", "flash_attention.cu", "ssd_scan.cu"):
         assert kbuild._local_includes(csrc / name) == [csrc / "hopper.cuh"]

@@ -8,8 +8,11 @@ tests/test_torch_cuda.py.
 Config: ``mamba2_370m.SMOKE``. Parameters, tokens and scan inputs come from
 numpy seeds and go to both.
 """
+import collections
 import dataclasses
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,10 +25,14 @@ from repro.configs import mamba2_370m as ref_mamba  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan  # noqa: E402
 from repro.models import ssm as RS  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import api, ssm as TS  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its phases run only under __main__)
 
 # the plain scan against the Pallas kernel and the sequential oracle:
 # tests/test_kernels.py's tolerance (fp32, the chunked and sequential forms
@@ -115,6 +122,109 @@ def test_segsum_masks_above_the_diagonal_before_the_exp():
     assert torch.equal(torch.isinf(out[0]), torch.ones(3, 3, dtype=torch.bool).triu(1))
     assert torch.allclose(out[0].tril(), torch.tensor([[0.0, 0, 0], [-2, 0, 0], [-5, -3, 0]]))
     assert torch.isfinite(torch.exp(out)).all()
+
+
+# the kernel's launch plan at every scan shape chip_smoke.py runs, and at the
+# configs' widths (mamba2-370m, zamba2-7b and their SMOKE cuts) at the
+# served prefill's 8 x 1024: (b, s, h, p, n, chunk)
+def _plan_shapes():
+    shapes = [(b, s, h, p, n, q) for b, s, h, p, g, n, q in
+              chip_smoke.SSD_SMALL + chip_smoke.SSD_EDGES
+              + [chip_smoke.SERVE_SSD, chip_smoke.ZAMBA_SSD]]
+    shapes.append((8, 1000) + chip_smoke.SERVE_SSD[2:4] + chip_smoke.SERVE_SSD[5:])
+    for arch in ("mamba2_370m", "zamba2_7b"):
+        for cfg in (tconfigs.get(arch), tconfigs.smoke(arch)):
+            shapes.append((8, 1024, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state,
+                           cfg.ssm_chunk))
+    shapes.append((1, tssd.MAX_CHUNK, 1, tssd.MAX_P, tssd.MAX_N, tssd.MAX_CHUNK))
+    return shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", _plan_shapes())
+def test_plan_gives_every_chunk_one_rank_and_fits_shared_memory(b, s, h, p, n, chunk, dtype):
+    """``ssd_scan.plan``: every chunk of a (batch, head) is owned by exactly
+    one rank of one group, no group is empty, the cluster is a power of two
+    within its limit (at least 2 CTAs where there are 2 chunks, and no more
+    than the chunks need), and a CTA's shared memory is what the kernel lays
+    out and fits the H100's 232,448 bytes, on a full card and a small one."""
+    for sms in (132, 16):
+        pl = tssd.plan(b, s, h, p, n, chunk, dtype, sms)
+        q = min(chunk, s)
+        assert pl.chunk == q and pl.chunks == -(-s // q)
+        cl = pl.cluster
+        assert 1 <= cl <= tssd.MAX_CLUSTER and cl & (cl - 1) == 0
+        assert cl >= min(2, pl.chunks) and (cl == 1 or cl // 2 < pl.chunks)
+        # the kernel's rule: rank r of group g owns chunk g * cluster + r
+        owned = collections.Counter(g * cl + r for g in range(pl.groups) for r in range(cl)
+                                    if g * cl + r < pl.chunks)
+        assert sorted(owned) == list(range(pl.chunks)) and set(owned.values()) == {1}
+        assert (pl.groups - 1) * cl < pl.chunks <= pl.groups * cl
+        assert pl.ctas == b * h * cl
+        assert (pl.stages, pl.cbufs) in ((-(-q // tssd.TJ), 2), (-(-q // tssd.TJ), 1)) \
+            + tssd.BUFFERS
+        assert pl.resident == (pl.stages >= -(-q // tssd.TJ))
+        assert pl.smem == tssd.smem_bytes(n, q, dtype, pl.stages, pl.cbufs) <= 232448
+    # the served shapes take their tiles once (resident) in bf16
+    if (b, s, h, p, n, chunk) in [(8, 1024, 32, 64, 128, 256), (2, 512, 112, 64, 64, 256)]:
+        assert tssd.plan(b, s, h, p, n, chunk, torch.bfloat16).resident
+
+
+def model_scan_inputs(b, s, h, p, g, n, seed=3):
+    """Scan inputs in mamba2's dt and A ranges (dt = softplus(d + 0.5 normal)
+    with softplus(d) log-uniform in [1e-3, 1e-1] per head, A uniform in
+    [-16, -1], as ``models.ssm`` initialises them), under which the state
+    carries across chunks; numpy fp32."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    d0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(h,)))
+    dt = np.log1p(np.exp(np.log(np.expm1(d0)) + 0.5 * rng.normal(size=(b, s, h))))
+    A = -rng.uniform(1.0, 16.0, size=(h,))
+    Bm = rng.normal(size=(b, s, g, n))
+    Cm = rng.normal(size=(b, s, g, n))
+    return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 300, 4, 16, 1, 16, 16),
+                                               (2, 200, 4, 8, 2, 16, 16)])
+def test_split_controls_fail_the_fp32_limit(b, s, h, p, g, n, chunk):
+    """chip_smoke's two controls of the state passed between CTAs, built from
+    the plain version alone: the scan run apart on the two sides of the first
+    chunk boundary (rank 0's state never reaches rank 1) and of the first
+    group boundary (the carry between groups dropped). Each must fail the
+    fp32 limit the kernel is held to, so a kernel that drops either state
+    cannot pass; the chunks here go to 2 groups of a cluster of 8."""
+    inputs = _t(*model_scan_inputs(b, s, h, p, g, n))
+    want_y, want_st = ref.ssd_chunked(*inputs, chunk)
+    pl = tssd.plan(b, s, h, p, n, chunk, torch.float32)
+    assert pl.groups >= 2
+    limit = chip_smoke.SSD_TOL[torch.float32]
+    for at in (chunk, pl.cluster * chunk):
+        y, st = chip_smoke.ssd_split(*inputs, chunk, at)
+        assert y.shape == want_y.shape and st.shape == want_st.shape
+        assert max(chip_smoke.ssd_rel(y, st, want_y, want_st)) > 10 * limit
+    # the undivided scan is within the limit of itself run in one piece
+    y, st = ops.ssd_scan(*inputs, chunk=chunk)
+    assert max(chip_smoke.ssd_rel(y, st, want_y, want_st)) <= limit
+
+
+def test_operands_go_to_the_tma_maps_as_they_lie_or_padded():
+    """``ssd_scan._operand``: the model's x and its B and C (views into one
+    projection) go to the TMA maps as they lie, with their (batch, position,
+    head) strides; a tensor whose strides or start are not on 16 bytes is
+    copied into rows padded to 16 bytes with the same values."""
+    b, s, h, p, g, n = 2, 40, 4, 16, 2, 8
+    x = torch.randn(b, s, h, p)
+    bc = torch.randn(b, s, 2 * g * n)
+    for t in (x, bc[..., :g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n)):
+        got, strides = tssd._operand(t)
+        assert got is t and strides == t.stride()[:3]
+    for t in (torch.randn(b, s, h, 6), torch.randn(b, s, h, 12)[..., 1:9],
+              torch.randn(b, s, h, 12).bfloat16()):
+        got, strides = tssd._operand(t)
+        assert got is not t and torch.equal(got, t) and strides == got.stride()[:3]
+        assert all(st * got.element_size() % 16 == 0 for st in strides)
+        assert got.data_ptr() % 16 == 0 and got.stride(3) == 1
 
 
 _chunked_vjp = jax.jit(lambda args, cts, chunk: jax.vjp(
