@@ -31,7 +31,20 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                controller on the card;
 5. profile   — one training step of a search candidate under torch.profiler:
                wall time, device time, and the kernel's share of it;
-6. attention — holds ``flash_attention`` against its plain version on the
+6. costmodel — labels 50,000 points of the oneshot search's joint space
+               (full-width MobileNetV2's kernel / expansion / op choices at 32 px
+               x the accelerator space) with the simulator, trains the MLP cost
+               model (``CostModelConfig()``: 20,000 Adam steps, energy head) on
+               the card, reports its validation MAPEs, and holds its forward and
+               3 steps (dropout 0) card against CPU;
+7. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
+               (17 blocks, 10 classes, 32 px, batch 64, 200 supernet steps,
+               warmup 50) with the REINFORCE controller on the card and the
+               cost model in the loop, with exactly 105 ``ibn_pointwise``
+               launches per supernet step and 35 per validation forward; the
+               supernet's logits and one SGD step card against CPU for four
+               draws; and 3 supernet steps under torch.profiler;
+8. attention — holds ``flash_attention`` against its plain version on the
                card at tests/test_kernels.py's shapes (fp32 and bf16), causal
                with sq != skv, head_dims 80, 112 and 256 with G 1, 2 and 8 at
                S 1000 and 1025, and the served model's prefill shape (B 8,
@@ -42,7 +55,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                ``scaled_dot_product_attention`` there (on the model's views,
                and once contiguous), at S 4096, and at zamba2-7b's,
                hubert-xlarge's and gemma-2b's heads;
-7. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
+9. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, zamba2-7b's H 112 N 64, and the cluster's edges
                (S 4096 and 8192, S 2300, a cluster of 8, one chunk, G 4 with
@@ -54,14 +67,14 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                call computes the scan) as the host issues them and on the
                device alone (CUDA graphs), at mamba2's and zamba2's shapes,
                and the wrapper's host µs per call;
-8. gmm       — holds ``gmm`` against its plain version (fp32 and bf16) at
+10. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, ragged edges, strided views, the
                bf16 body's edges (C 1 to 8192, D off the K steps, F under one
                tile, 60 experts of 8 rows) and qwen2-moe-a2.7b's four expert
                products, with two controls that the bf16 limit must fail;
                times kernel, plain version and ``torch.bmm`` at the four
                products;
-9. serve     — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
+11. serve    — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
                random weights from a seed on the card, 8 prompts of 1024 tokens
                through ``make_prefill_step`` (exactly 28 kernel launches) and the
                ``return_cache`` forward, the k/v written into a preallocated
@@ -69,25 +82,25 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                the first step held against a forward over the prompt plus its
                token, 4 steps over int8 caches; ms per prefill and per decode
                step, tokens/s, and where the device time goes (torch.profiler);
-10. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
+12. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
                ``ssd_scan`` launches), 64 decode steps over the prompt from a zero
                cache then 32 greedy steps at batch 8, decode vs forward held in
                fp32 and for the timed bf16 decode; times and the profiler's
                breakdown;
-11. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
+13. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
                8 x 1024 (exactly 72 ``gmm`` and 24 ``flash_attention``
                launches), a 2048-position bf16 cache filled by one multi-token
                decode step, 32 greedy steps, decode vs forward at 8 x 256 tokens
                (no capacity drops); times and the profiler's breakdown;
-12. llm       — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
+14. llm      — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
                whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups with
                its shared block on ``flash_attention`` at head_dim 112), fp32
                and bf16: the card's logits (kernels) against the port's CPU
                forward (plain versions), with each kernel's launch count;
-13. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+15. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search for ibn_pointwise; serve, serve_ssm and serve_moe for
-flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
+Each main path (search and oneshot for ibn_pointwise; serve, serve_ssm and
+serve_moe for flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
 to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
@@ -96,6 +109,7 @@ convolutions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -111,7 +125,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.common import tree_leaves, tree_map  # noqa: E402
-from repro_torch.core import nas, scenarios  # noqa: E402
+from repro_torch.core import costmodel, has, nas, oneshot, scenarios, simulator  # noqa: E402
 from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
@@ -134,6 +148,18 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGIT_TOL = 1e-3  # card vs CPU logits, absolute (cuDNN vs CPU conv sum order)
 MAIN_PATH_SCENARIO = "lat-0.5ms"
+# costmodel: labelled points and the card-vs-CPU limits (forward / max |output|;
+# 3 Adam steps per leaf / max(1, max |leaf|))
+COST_POINTS = 50_000
+COST_CONFIG = costmodel.CostModelConfig()
+COST_FWD_TOL = 1e-5
+COST_STEP_TOL = 1e-4
+# oneshot: supernet steps of the search, the card-vs-CPU batch, and the limits
+# (logits / max |logit|; one SGD step per leaf / max(1, max |leaf|); its
+# gradient per leaf / that leaf's max |gradient|)
+ONESHOT_STEPS = 200
+ONESHOT_CHECK_BATCH = 8
+ONESHOT_TOL = 1e-4
 # flash_attention against its plain version, absolute, inputs N(0, 1):
 # tests/test_kernels.py's tolerances (fp32 sums in another order; bf16 rounds
 # p and the output to 8 bits of mantissa)
@@ -329,6 +355,15 @@ def search_space_shapes(batch: int, image_size: int) -> list[tuple[int, int, int
     return sorted(set(shapes))
 
 
+def supernet_shapes(batch: int, image_size: int) -> list[tuple[int, int, int]]:
+    """The 1×1 shapes of one oneshot supernet forward, in order, repeats kept:
+    its weights are at the largest expansion in every block, block 0
+    included, whatever the draw masks."""
+    base = C.mobilenet_v2(10, image_size)
+    blocks = tuple(dataclasses.replace(b, expansion=oneshot._MAX_EXP) for b in base.blocks)
+    return pointwise_shapes(dataclasses.replace(base, blocks=blocks), batch)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, that over max(1, max |want|))."""
     err = (got.float() - want.float()).abs().max().item()
@@ -481,14 +516,16 @@ def k1_edges(card: str) -> dict:
     return {"records": out}
 
 
-def device_phase(card: str, full, search, per_model) -> dict:
+def device_phase(card: str, full, search, supernet, per_model) -> dict:
     """K1 and one PyTorch call on the device alone (CUDA graphs of 20
-    calls, in turns), per product, summed over the search's 36 shapes and
-    over the full-width models' shapes; and the wrapper's host µs per call."""
+    calls, in turns), per product, summed over the search's 36 shapes, over
+    one supernet forward's 35 products and over the full-width models'
+    shapes; and the wrapper's host µs per call."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    per_shape = {shape: product_times(*shape, gen) for shape in sorted(set(full) | set(search))}
+    per_shape = {shape: product_times(*shape, gen)
+                 for shape in sorted(set(full) | set(search) | set(supernet))}
     sums = {}
-    for label, shapes in (("search", search), *per_model.items()):
+    for label, shapes in (("search", search), ("supernet", supernet), *per_model.items()):
         sums[label] = {p: {k: sum(per_shape[s][p][k] for s in shapes)
                            for k in ("ms", "library_ms", "bound_ms", "bound_bytes_ms",
                                      "bound_ops_ms")}
@@ -522,8 +559,9 @@ def kernel_phase(card: str) -> dict:
     per_model = {name: pointwise_shapes(spec, 8) for name, spec in models.items()}
     full = sorted({s for shapes in per_model.values() for s in shapes})
     search = search_space_shapes(64, 32)
+    supernet = supernet_shapes(64, 32)
     records = {}
-    for shape in sorted(set(full) | set(search)):
+    for shape in sorted(set(full) | set(search) | set(supernet)):
         for act in ("none", "relu"):
             records[(shape, act, "fp32")] = check_shape(
                 *shape, act, torch.float32, gen, timed=(act == "none"))
@@ -540,7 +578,9 @@ def kernel_phase(card: str) -> dict:
     flips = sum(r["relu_mask_flips"] for r in records.values())
     zeroed = sum(r["cotangent_zeroed"] for r in records.values())
     print(f"kernel: {len(records)} checks at {len(full)} full-width shapes (224 px, "
-          f"batch 8) and {len(search)} search shapes (32 px, batch 64), forward and "
+          f"batch 8), {len(search)} search shapes and {len(set(supernet))} supernet shapes "
+          f"({len(set(supernet) - set(search))} not among the search's; 32 px, batch 64), "
+          f"forward and "
           f"backward; worst error {worst:.3g} of its tolerance; {flips} relu outputs on the "
           f"other side of 0 from the plain version's, each within the limit of 0 (relu's "
           f"cotangent is 0 at the {zeroed} plain pre-activations there)  [{card}]")
@@ -571,9 +611,10 @@ def kernel_phase(card: str) -> dict:
     print(f"kernel: the {len(search)} search shapes, one forward each, host-issued (CUDA "
           f"events around 20 calls): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
           f"addmm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms  [{card}]")
-    fp32_main = [records[(s, a, "fp32")] for s in search for a in ("none", "relu")]
+    fp32_main = [records[(s, a, "fp32")] for s in sorted(set(search) | set(supernet))
+                 for a in ("none", "relu")]
     edges = k1_edges(card)
-    device = device_phase(card, full, search, per_model)
+    device = device_phase(card, full, search, supernet, per_model)
     return {"records": list(records.values()), "summary": summary,
             "search_totals": t, "device": device, "edges": edges,
             "max_abs_err": max(r["fwd_max_abs_err"] for r in fp32_main),
@@ -708,6 +749,263 @@ def profile_phase(card: str) -> dict:
             print(f"profile:   {ms:.4f} ms/step  {name[:90]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "ibn_ms": ibn_ms,
             "launches_per_step": launches, "per_kernel_ms": per_kernel}
+
+
+def _oneshot_base() -> C.ConvNetSpec:
+    """Full-width MobileNetV2 as the oneshot search sizes it: 10 classes, 32 px."""
+    return C.mobilenet_v2(10, 32)
+
+
+def _leaf_errs(got, want) -> list[float]:
+    """Per leaf, max |got - want| over max(1, max |want|), both on the CPU."""
+    return [((g.cpu().float() - w.float()).abs().max()
+             / max(1.0, w.float().abs().max().item())).item()
+            for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def _grad_errs(got, want) -> list[float]:
+    """Per leaf, max |got - want| over max |want|, both on the CPU: 0 where
+    both are all 0, inf where only ``want`` is. A step's update (lr times the
+    gradient) lies far below the parameters' rounding, so the step's
+    gradient is held leaf by leaf on its own scale."""
+    errs = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        diff, scale = (g.cpu() - w).abs().max().item(), w.abs().max().item()
+        errs.append(diff / scale if scale else (0.0 if diff == 0 else math.inf))
+    return errs
+
+
+PLANTED_FAULTS = ("block0_expand_dw_dropped", "unselected_branch_cotangent")
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """A fault the supernet's gradient check must see, for the length of a
+    ``with``: block 0's expand conv with no weight gradient (K1's dw left
+    out; the same weight values), or the unselected branch of every block
+    taking the cotangent too (the forward unchanged)."""
+    pointwise, where, calls = C._pointwise, torch.where, []
+
+    def faulty(x, w, act="none"):
+        calls.append(w)
+        return pointwise(x, w.detach() + 0 * w if len(calls) == 1 else w, act)
+
+    def leaky(cond, a, b):
+        return where(cond, a.detach(), b.detach()) + (a - a.detach()) + (b - b.detach())
+
+    if fault == "block0_expand_dw_dropped":
+        C._pointwise = faulty
+    else:
+        torch.where = leaky
+    try:
+        yield
+    finally:
+        C._pointwise, torch.where = pointwise, where
+
+
+def costmodel_phase(card: str) -> dict:
+    """Sec. 3.5.2's cost model as the oneshot search uses it: labelled on the
+    search's own joint space (its features are what the loop queries),
+    trained on the card, then held card against CPU."""
+    nas_space = oneshot.oneshot_space(_oneshot_base())
+    has_space = has.has_space()
+    t0 = time.perf_counter()
+    feats, lat, area, energy = costmodel.generate_dataset(
+        nas_space, has_space, COST_POINTS, seed=0, include_energy=True)
+    label_s = time.perf_counter() - t0
+    cfg = COST_CONFIG
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, metrics = costmodel.train(feats, lat, area, cfg, energy_mj=energy, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"costmodel: non-finite metrics {metrics}")
+    print(f"costmodel: labelled {COST_POINTS} points of oneshot(mobilenet_v2, 32 px) x has "
+          f"({feats.shape[1]} features) in {label_s:.2f} s of host time; trained "
+          f"{cfg.steps} steps (3 x {cfg.hidden}, dropout {cfg.dropout}, batch {cfg.batch}, "
+          f"energy head) on {DEV} in {train_s:.2f} s, {train_s / cfg.steps * 1e3:.4f} ms per "
+          f"step; validation MAPE latency {metrics['val_latency_mape']:.4f} area "
+          f"{metrics['val_area_mape']:.4f} energy {metrics['val_energy_mape']:.4f}, latency "
+          f"R2 {metrics['val_latency_r2']:.4f}  [{card}]")
+
+    # card against CPU: the trained model's forward, then 3 steps from one init
+    x = torch.from_numpy(feats[:8192].astype(np.float32))
+    cpu_params = tree_map(lambda t: t.cpu(), model.params)
+    with torch.no_grad():
+        got = costmodel.mlp_forward_all(model.params, x.to(DEV))
+        want = costmodel.mlp_forward_all(cpu_params, x)
+    fwd_err = max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, want))
+    few = dataclasses.replace(cfg, steps=3, dropout=0.0)
+    on_card, _ = costmodel.train(feats, lat, area, few, energy_mj=energy, device=DEV)
+    on_cpu, _ = costmodel.train(feats, lat, area, few, energy_mj=energy, device="cpu")
+    step_err = max(_leaf_errs(on_card.params, on_cpu.params))
+    print(f"costmodel: card vs CPU forward {fwd_err:.3g} of max |output| (limit "
+          f"{COST_FWD_TOL}); 3 steps, dropout 0, from one init: params {step_err:.3g} per "
+          f"leaf (limit {COST_STEP_TOL})  [{card}]")
+    if fwd_err > COST_FWD_TOL or step_err > COST_STEP_TOL:
+        raise AssertionError(f"costmodel: card vs CPU {fwd_err}, {step_err}")
+    return {"model": model, "metrics": metrics, "label_s": label_s, "train_s": train_s,
+            "ms_per_step": train_s / cfg.steps * 1e3, "n_features": int(feats.shape[1]),
+            "fwd_err": fwd_err, "step_err": step_err}
+
+
+def _oneshot_draws(n: int) -> dict:
+    """(ks, exps, ops) for all-IBN, all-fused and two mixed draws."""
+    i = np.arange(n)
+    return {"all_ibn": (np.full(n, 7), np.full(n, 6), np.zeros(n, int)),
+            "all_fused": (np.full(n, 3), np.full(n, 3), np.ones(n, int)),
+            "mixed_a": (3 + 2 * (i % 3), np.where(i % 2, 3, 6), i % 2),
+            "mixed_b": (7 - 2 * (i % 3), np.where(i % 2, 6, 3), 1 - i % 2)}
+
+
+def _conv_ms(prof, steps_run: int) -> float:
+    """Device ms per step of the fused 7×7 convolutions (not the depthwise
+    ones), forward and backward, from the ops' input shapes."""
+    total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in ("aten::convolution", "aten::convolution_backward"):
+            continue
+        shapes = e.input_shapes or []
+        weight = shapes[1] if e.key == "aten::convolution" else shapes[2]
+        if len(weight) == 4 and weight[2:] == [7, 7] and weight[1] > 1:
+            us = getattr(e, "device_time_total", None)
+            total += (e.cuda_time_total if us is None else us) / 1e3
+    return total / steps_run
+
+
+def oneshot_phase(card: str, cost_model) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    base = _oneshot_base()
+    n = len(base.blocks)
+    per_forward = 2 * n + 1  # expand and project per block, and the head
+    rcfg = scenarios.get(MAIN_PATH_SCENARIO).reward_config()
+    cfg = oneshot.OneshotConfig(steps=ONESHOT_STEPS, batch=64, image_size=32, seed=0,
+                                device=DEV)
+    warmup = int(cfg.steps * cfg.warmup_frac)
+    expected = 3 * per_forward * cfg.steps + per_forward * len(
+        range(warmup, cfg.steps, cfg.controller_every))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = oneshot.oneshot_search(base, rcfg, cfg, cost_model=cost_model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches["ibn_pointwise"] != expected:
+        raise AssertionError(f"oneshot: {launches} kernel launches, expected {expected} of "
+                             f"ibn_pointwise")
+    hist = res["history"]
+    valid = [h for h in hist if h["valid"]]
+    if not hist or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("oneshot: no history or a non-finite loss")
+    arch, hw = res["best_arch"], res["best_hw"]
+    sim = simulator.simulate_safe(arch, hw)
+    blocks = [(b.kernel, b.expansion, b.op) for b in arch.blocks]
+    print(f"oneshot: mobilenet_v2 supernet ({n} blocks, 32 px, batch 64), {cfg.steps} steps "
+          f"(warmup {warmup}), REINFORCE on {DEV}, cost model in the loop, scenario "
+          f"{MAIN_PATH_SCENARIO}: wall {wall:.2f} s, {wall / cfg.steps * 1e3:.2f} ms per "
+          f"supernet step with its controller step; {launches['ibn_pointwise']} ibn_pointwise "
+          f"launches ({3 * per_forward} per train step, {per_forward} per validation "
+          f"forward); valid share {len(valid) / len(hist):.3f}; last losses "
+          f"{[round(h['loss'], 4) for h in hist[-3:]]}  [{card}]")
+    print(f"oneshot: best arch (k, exp, op) per block {blocks}; best hw {hw}; simulated "
+          + ("invalid" if sim is None else
+             f"latency {sim['latency_ms']:.4f} ms area {sim['area_mm2']:.2f} mm^2 energy "
+             f"{sim['energy_mj']:.4f} mJ") + f"  [{card}]")
+
+    # card against CPU at full width: logits and one SGD step per draw
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.normal(size=(ONESHOT_CHECK_BATCH, 32, 32, 3))
+                              .astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, size=ONESHOT_CHECK_BATCH))
+    params = oneshot.init_supernet(0, base, device=DEV)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    checks = {}
+    for name, (ks, exps, ops) in _oneshot_draws(n).items():
+        with torch.no_grad():
+            got = oneshot.supernet_forward(params, images.to(DEV), base, ks, exps, ops)
+            want = oneshot.supernet_forward(cpu_params, images, base, ks, exps, ops)
+        logit_err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        new, loss = oneshot.train_step(params, images.to(DEV), labels.to(DEV), base, ks, exps,
+                                       ops, cfg.lr)
+        new_cpu, loss_cpu = oneshot.train_step(cpu_params, images, labels, base, ks, exps,
+                                               ops, cfg.lr)
+        step_err = max(_leaf_errs(new, new_cpu))
+        _, grads_cpu = oneshot.loss_and_grads(cpu_params, images, labels, base, ks, exps, ops)
+        _, grads = oneshot.loss_and_grads(params, images.to(DEV), labels.to(DEV), base, ks,
+                                          exps, ops)
+        grad_err = max(_grad_errs(grads, grads_cpu))
+        checks[name] = {"logit_err": logit_err, "step_err": step_err, "grad_err": grad_err,
+                        "loss_err": abs(float(loss) - float(loss_cpu))}
+        if not (torch.isfinite(got).all() and got.shape == (ONESHOT_CHECK_BATCH, 10)):
+            raise AssertionError(f"oneshot {name}: bad logits {tuple(got.shape)}")
+        if max(logit_err, step_err, grad_err) > ONESHOT_TOL:
+            raise AssertionError(f"oneshot {name}: card vs CPU {checks[name]}")
+        if name == "mixed_a":  # each planted fault must fail the gradient check
+            controls = {}
+            for fault in PLANTED_FAULTS:
+                with _planted(fault):
+                    _, bad = oneshot.loss_and_grads(params, images.to(DEV), labels.to(DEV),
+                                                    base, ks, exps, ops)
+                bad_cpu = tree_map(lambda t: t.cpu(), bad)
+                controls[fault] = {"grad_err": max(_grad_errs(bad, grads_cpu)),
+                                   "step_err": max(_leaf_errs(
+                                       tree_map(lambda p, g: p - cfg.lr * g, cpu_params,
+                                                bad_cpu), new_cpu))}
+            checks[name]["controls"] = controls
+            if not min(c["grad_err"] for c in controls.values()) > ONESHOT_TOL:
+                raise AssertionError(f"oneshot: the gradient limit passes a control: "
+                                     f"{controls}")
+    print(f"oneshot: card vs CPU at full width, batch {ONESHOT_CHECK_BATCH}, fp32: "
+          + "; ".join(f"{k} logits {v['logit_err']:.3g} of max |logit|, one SGD step "
+                      f"{v['step_err']:.3g} per leaf, its gradient {v['grad_err']:.3g} of "
+                      f"the leaf's max" for k, v in checks.items())
+          + f" (limit {ONESHOT_TOL}); planted faults on the card fail the gradient check: "
+          + ", ".join(f"{f} {c['grad_err']:.3g} (the step's parameters "
+                      f"{c['step_err']:.3g})" for f, c in controls.items()) + f"  [{card}]")
+
+    # 3 supernet steps of a mixed draw: wall without the profiler, device with it
+    ks, exps, ops = _oneshot_draws(n)["mixed_a"]
+    b = rng.normal(size=(64, 32, 32, 3)).astype(np.float32)
+    x = torch.from_numpy(b).to(DEV)
+    y = torch.from_numpy(rng.integers(0, 10, size=64)).to(DEV)
+    steps = 3
+
+    def run():
+        nonlocal params
+        for _ in range(steps):
+            params, _ = oneshot.train_step(params, x, y, base, ks, exps, ops, cfg.lr)
+        torch.cuda.synchronize()
+
+    run()  # warm-up
+    before = ibn_conv.LAUNCHES
+    t0 = time.perf_counter()
+    run()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_step = (ibn_conv.LAUNCHES - before) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+    per_kernel = _device_times(prof, steps)
+    device_ms = sum(per_kernel.values())
+    fused_ms = _conv_ms(prof, steps)
+    shares = _print_breakdown(f"supernet step (mobilenet_v2, 32 px, batch 64, {per_step:.0f} "
+                              f"ibn_pointwise launches; fused 7x7 convs {fused_ms:.3f} ms)",
+                              step_ms, per_kernel, card, phase="oneshot",
+                              kernels=(("ibn_pointwise", K1_SYMBOL),))
+    if per_step != 3 * per_forward:
+        raise AssertionError(f"oneshot: {per_step} launches per supernet step, expected "
+                             f"{3 * per_forward}")
+    return {"wall_s": wall, "steps": cfg.steps, "warmup": warmup,
+            "launches": launches["ibn_pointwise"], "expected_launches": expected,
+            "valid_share": len(valid) / len(hist), "best_blocks": blocks, "best_hw": str(hw),
+            "best_sim": sim, "checks": checks, "step_ms": step_ms, "device_ms": device_ms,
+            "ibn_ms": shares["ibn_pointwise"], "fused_conv_ms": fused_ms,
+            "launches_per_step": per_step,
+            "top": sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]}
 
 
 def attention_bound_parts_ms(b, h, kv, sq, skv, hd, causal, dtype) -> tuple[float, float]:
@@ -1701,6 +1999,8 @@ def main() -> int:
     model = timed("model", model_phase)
     search = timed("search", search_phase)
     prof = timed("profile", profile_phase)
+    cost = timed("costmodel", costmodel_phase)
+    one = timed("oneshot", lambda c: oneshot_phase(c, cost["model"]))
     attn = timed("attention", attention_phase)
     ssd = timed("ssd", ssd_phase)
     gmm_res = timed("gmm", gmm_phase)
@@ -1737,6 +2037,9 @@ def main() -> int:
         "device_backward_library_ms": {p: dev[p]["library_ms"] for p in ("dx", "dw")},
         "launches_per_train_step": prof["launches_per_step"],
         "device_ms_per_train_step": prof["ibn_ms"],
+        "launches_per_oneshot_step": one["launches_per_step"],
+        "oneshot_launches": one["launches"],
+        "device_ms_per_oneshot_step": one["ibn_ms"],
         "max_rel_err_fwd": kern["max_rel_err_fwd"],
         "max_rel_err_bwd": kern["max_rel_err_bwd"],
     }, {
@@ -1799,7 +2102,8 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernel": kern, "model": model, "search": search,
-             "profile": prof, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
+             "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
+             "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm,
              "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))

@@ -3,8 +3,9 @@
 space/nas/has define the symbolic search spaces, controllers the samplers
 (PPO / REINFORCE on torch, evolution in numpy), engine the batched+cached
 EvaluationEngine, simulator the analytic hardware model, proxy the accuracy
-signals (TrainedAccuracy trains on the card), reward the Eq. 4-6 objective,
-scenarios/pareto the use-case registry and frontier, and search/session the
-drivers. Mirrors ``repro.core``; the learned cost model, oneshot, the mesh
-search and the sweep are not ported yet.
+signals (TrainedAccuracy trains on the card), costmodel the learned
+latency/area/energy MLP (Sec. 3.5.2), oneshot the weight-sharing supernet
+search, reward the Eq. 4-6 objective, scenarios/pareto the use-case
+registry and frontier, and search/session the drivers. Mirrors
+``repro.core`` apart from the mesh search and the sweep.
 """

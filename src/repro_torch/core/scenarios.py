@@ -7,14 +7,17 @@ joint (α, h) search toward a different optimum. A ``Scenario`` is a named,
 frozen description of one such use case: performance/area targets plus the
 constraint mode (hard p=0,q=-1 / soft p=q=-0.07, Eq. 4-6).
 
-Counterpart of ``repro/core/scenarios.py``: ``Scenario``, the registry and
-the paper's presets are copies. ``expand``, the LLM scenario grid
+``expand`` resolves any mix of ``Scenario`` objects, scenario names and
+preset names into a scenario list; ``register`` adds user-defined scenarios.
+
+Counterpart of ``repro/core/scenarios.py``: ``Scenario``, the registry,
+``expand`` and the paper's presets are copies. The LLM scenario grid
 (``grid``) and the transfer embedding (``features``) are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Iterable, Mapping, Optional, Sequence, Union
 
 from repro_torch.core import simulator
 from repro_torch.core.reward import RewardConfig, meets_constraints, reward_record
@@ -118,6 +121,31 @@ def get(name: str) -> Scenario:
 
 def names() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def expand(
+    items: Union[str, Scenario, Iterable[Union[str, Scenario]]],
+) -> list[Scenario]:
+    """Resolve scenarios / scenario names / preset names (deduplicated,
+    order-preserving) into a list of ``Scenario`` objects."""
+    if isinstance(items, (str, Scenario)):
+        items = [items]
+    out: list[Scenario] = []
+    seen: set[str] = set()
+    for item in items:
+        if isinstance(item, Scenario):
+            group: Sequence[Scenario] = [item]
+        elif item in PRESETS:
+            group = [get(n) for n in PRESETS[item]]
+        else:
+            group = [get(item)]
+        for s in group:
+            if s.name not in seen:
+                seen.add(s.name)
+                out.append(s)
+    if not out:
+        raise ValueError("no scenarios selected")
+    return out
 
 
 # ---------------------------------------------------------------------------

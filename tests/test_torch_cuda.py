@@ -2,12 +2,16 @@
 ibn_pointwise, flash_attention, ssd_scan and gmm, forward and backward, and
 the prefills of the dense transformer (flash_attention), the
 Mamba2 LM (ssd_scan), the MoE transformer (gmm) and the hybrid
-(flash_attention and ssd_scan) against the port's CPU forward. Every test here carries the ``cuda`` marker
+(flash_attention and ssd_scan) against the port's CPU forward, and the
+oneshot supernet (ibn_pointwise) and the learned cost model against the
+port's CPU run. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -15,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.core import costmodel, has, oneshot  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import gmm as tgmm  # noqa: E402
@@ -23,6 +28,7 @@ from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
 from repro_torch.models import api, moe, transformer  # noqa: E402
+from repro_torch.models import convnets as C  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SHAPES = [
@@ -641,3 +647,99 @@ def test_model_backward_on_card_matches_cpu(family):
     for leaf, cpu_leaf in zip(tree_leaves(params), tree_leaves(cpu_params)):
         scale = max(1.0, cpu_leaf.grad.abs().max().item())
         assert (leaf.grad.cpu() - cpu_leaf.grad).abs().max().item() / scale < 1e-4
+
+
+def _supernet_base(full: bool):
+    """Full-width MobileNetV2 at 32 px, or oneshot_bench's small base."""
+    base = C.mobilenet_v2(10, 32) if full else C.mobilenet_v2(10, 32, width=0.35)
+    if full:
+        return base
+    return dataclasses.replace(base, blocks=base.blocks[:4], head_filters=128)
+
+
+def _no_tf32(monkeypatch):
+    """fp32 products and convolutions in full fp32, as on the CPU."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["all_ibn", "all_fused", "mixed"])
+def test_supernet_forward_and_sgd_step_on_card_match_cpu(draw, monkeypatch):
+    """The oneshot supernet at the small base: logits and one SGD step, card
+    (every 1×1 conv on ibn_pointwise) against the port's CPU run on the same
+    parameters, within 1e-4: the parameters after the step, and each leaf's
+    gradient against that leaf's largest (0 where the CPU's is all 0)."""
+    _need_sm90()
+    _no_tf32(monkeypatch)
+    base = _supernet_base(full=False)
+    n = len(base.blocks)
+    ks, exps, ops = {"all_ibn": ([7] * n, [1] + [6] * (n - 1), [0] * n),
+                     "all_fused": ([3] * n, [1] + [3] * (n - 1), [1] * n),
+                     "mixed": ([3, 5, 7, 5], [1, 3, 6, 3], [0, 1, 0, 1])}[draw]
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(8, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=8))
+    params = oneshot.init_supernet(0, base, device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with torch.no_grad():
+        got = oneshot.supernet_forward(params, x.cuda(), base, ks, exps, ops)
+        want = oneshot.supernet_forward(cpu_params, x, base, ks, exps, ops)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    new, loss = oneshot.train_step(params, x.cuda(), y.cuda(), base, ks, exps, ops, 0.05)
+    new_cpu, loss_cpu = oneshot.train_step(cpu_params, x, y, base, ks, exps, ops, 0.05)
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-4 * max(1.0, abs(float(loss_cpu)))
+    for g, w in zip(tree_leaves(new), tree_leaves(new_cpu)):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+    _, grads = oneshot.loss_and_grads(params, x.cuda(), y.cuda(), base, ks, exps, ops)
+    _, grads_cpu = oneshot.loss_and_grads(cpu_params, x, y, base, ks, exps, ops)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_supernet_step_launches_the_kernel_three_times_per_pointwise_conv(full):
+    """Every 1×1 conv of the supernet (expand and project per block, the
+    head) is one forward, one dx and one dw launch of ibn_pointwise, whatever
+    the draw: 27 at the small base, 105 at full width."""
+    _need_sm90()
+    base = _supernet_base(full)
+    n = len(base.blocks)
+    params = oneshot.init_supernet(0, base, device="cuda")
+    x = torch.randn((2, 32, 32, 3), device="cuda")
+    y = torch.randint(0, 10, (2,), device="cuda")
+    for ops in ([0] * n, [1] * n):
+        before = ibn_conv.LAUNCHES
+        params, _ = oneshot.train_step(params, x, y, base, [5] * n, [1] + [6] * (n - 1), ops,
+                                       0.05)
+        torch.cuda.synchronize()
+        assert ibn_conv.LAUNCHES - before == 3 * (2 * n + 1) == (105 if full else 27)
+
+
+@pytest.mark.cuda
+def test_costmodel_forward_and_steps_on_card_match_cpu(monkeypatch):
+    """The cost model's forward on one init, and 3 Adam steps (dropout 0)
+    from it, card against CPU: 1e-5 of max |output| and 1e-4 per leaf."""
+    _need_card()
+    _no_tf32(monkeypatch)
+    space = oneshot.oneshot_space(_supernet_base(full=False))
+    feats, lat, area, energy = costmodel.generate_dataset(space, has.has_space(), 600,
+                                                          seed=0, include_energy=True)
+    cfg = costmodel.CostModelConfig(steps=3, batch=64, dropout=0.0)
+    init = {dev: costmodel.init_mlp(torch.Generator().manual_seed(0), feats.shape[1], cfg,
+                                    energy=True, device=dev) for dev in ("cuda", "cpu")}
+    x = torch.from_numpy(feats.astype(np.float32))
+    with torch.no_grad():
+        got = costmodel.mlp_forward_all(init["cuda"], x.cuda())
+        want = costmodel.mlp_forward_all(init["cpu"], x)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+    on_card, m_card = costmodel.train(feats, lat, area, cfg, energy_mj=energy, device="cuda")
+    on_cpu, m_cpu = costmodel.train(feats, lat, area, cfg, energy_mj=energy, device="cpu")
+    assert np.array_equal(on_card.mu, on_cpu.mu)
+    for g, w in zip(tree_leaves(on_card.params), tree_leaves(on_cpu.params)):
+        assert g.device.type == "cuda"
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+    for key, w in m_cpu.items():
+        assert m_card[key] == pytest.approx(w, rel=1e-4), key

@@ -16,10 +16,13 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 import test_torch_attention as ta  # noqa: E402
+import test_torch_cascade as tca  # noqa: E402
 import test_torch_convnets as tc  # noqa: E402
+import test_torch_costmodel as tcm  # noqa: E402
 import test_torch_hybrid as th  # noqa: E402
 import test_torch_kernels as tk  # noqa: E402
 import test_torch_moe as tm  # noqa: E402
+import test_torch_oneshot as to  # noqa: E402
 import test_torch_search as ts  # noqa: E402
 import test_torch_ssm as tss  # noqa: E402
 import test_torch_transformer as tt  # noqa: E402
@@ -367,10 +370,96 @@ def gradient_rows():
              "test_vjp_matches_reference", tss.GRAD_TOL, err) for fam, err in vjp.items()]
 
 
+def cascade_rows():
+    """Records and stats that differ from the reference's (bitwise checks)."""
+    mismatches = 0
+    for scenario_set in (["paper-use-cases"], ["edge-skus", "lat-0.3ms"], []):
+        vecs = tca._joint_vecs(tca.nas.tiny_space(), tca.has.has_space(), 256, seed=21)
+        vecs[::2, tca.nas.tiny_space().num_decisions:] = tca.ref_has.baseline_vec(
+            tca.ref_has.has_space())
+        ref_casc = tca.RefCascade(scenarios=scenario_set)
+        port_casc = tca.CascadeBackend(scenarios=scenario_set)
+        ref = tca.ref_engine.EvaluationEngine(
+            tca.ref_nas.tiny_space(), tca.ref_has.has_space(), tca.ref_proxy.SurrogateAccuracy(),
+            tca._rcfg(tca.ref_reward, area_target_mm2=tca.ref_sim.BASELINE_AREA_MM2),
+            backend=ref_casc)
+        port = tca.port_engine.EvaluationEngine(
+            tca.nas.tiny_space(), tca.has.has_space(), tca.proxy.SurrogateAccuracy(),
+            tca._rcfg(), backend=port_casc)
+        for chunk in np.split(vecs, 4):
+            mismatches += sum(g != w for g, w in zip(port.evaluate_batch(chunk),
+                                                     ref.evaluate_batch(chunk)))
+        mismatches += port_casc.stats.as_dict() != ref_casc.stats.as_dict()
+    return [("hw.cascade records and stats, 3 x 256 replayed joint vectors (mismatches)",
+             "test_replayed_stream_gives_the_reference_records_and_stats", 0, mismatches)]
+
+
+def costmodel_rows():
+    feats, lat, area, en = tcm.R.generate_dataset(
+        tcm.ref_nas.tiny_space(), tcm.ref_has.has_space(), 300, seed=0, include_energy=True)
+    fwd = 0.0
+    for energy in (False, True):
+        p = tcm._ref_params(feats.shape[1], energy)
+        want = tcm.R.mlp_forward_all(jax.tree.map(jnp.asarray, p), feats.astype(np.float32))
+        got = tcm.T.mlp_forward_all(tcm.T.params_from_reference(p, "cpu"),
+                                    torch.from_numpy(feats.astype(np.float32)))
+        fwd = max(fwd, max(float(np.max(np.abs(g.numpy() - np.asarray(w)))
+                                 / max(1.0, np.abs(np.asarray(w)).max()))
+                           for g, w in zip(got, want) if w is not None))
+    cfg = tcm.R.CostModelConfig(steps=50, batch=64, dropout=0.0)
+    init = tcm.T.init_mlp
+    tcm.T.init_mlp = lambda gen, in_dim, c, energy=False, device="cuda": (
+        tcm.T.params_from_reference(tcm._ref_params(in_dim, energy, c.seed), device))
+    try:
+        want, want_m = tcm.R.train(feats, lat, area, cfg, energy_mj=en)
+        got, got_m = tcm.T.train(feats, lat, area, tcm.T.CostModelConfig(**vars(cfg)),
+                                 energy_mj=en, device="cpu")
+    finally:
+        tcm.T.init_mlp = init
+    params = max(float(np.max(np.abs(g.numpy() - w)) / max(1.0, np.abs(w).max()))
+                 for g, w in zip(tcm.tree_leaves(got.params),
+                                 tcm.tree_leaves(jax.tree.map(np.asarray, want.params))))
+    metrics = max(abs(got_m[k] - w) / abs(w) for k, w in want_m.items())
+    return [("costmodel.mlp_forward_all on converted params, 2 and 3 heads, / max(1, max)",
+             "test_mlp_forward_all_matches_reference", tcm.FWD_TOL, fwd),
+            ("costmodel.train from the reference's init, 50 steps, dropout 0, energy head: "
+             "params per leaf / max(1, max)", "test_train_matches_reference_from_its_init",
+             tcm.PARAM_TOL, params),
+            ("the same: validation metrics, relative", "test_train_matches_reference_from_its_init",
+             tcm.METRIC_TOL, metrics)]
+
+
+def oneshot_rows():
+    np_params = to.tree_map(lambda t: t.numpy(), to.TO.init_supernet(0, to.TBASE, device="cpu"))
+    ref_params = jax.tree.map(jnp.asarray, np_params)
+    tp = to.TO.params_from_reference(np_params, "cpu")
+    logits = step = grads = 0.0
+    for name in to.DRAWS:
+        ks, exps, ops = to._draw(name)
+        x, _ = to._inputs()
+        want = np.asarray(to._ref_forward(ref_params, jnp.asarray(x), to.BASE, jnp.asarray(ks),
+                                          jnp.asarray(exps), jnp.asarray(ops)))
+        got = to.TO.supernet_forward(tp, torch.from_numpy(x), to.TBASE, ks, exps, ops).numpy()
+        logits = max(logits, float(np.max(np.abs(got - want)) / np.abs(want).max()))
+        (_, want_g, want_p), (_, got_g, got_p), _ = to._sgd_step_both(np_params, ref_params,
+                                                                       name)
+        errs = to.tree_map(lambda g, w: float(np.max(np.abs(g.numpy() - w))
+                                               / max(1.0, np.abs(w).max())), got_p, want_p)
+        step = max(step, max(to.tree_leaves(errs)))
+        grads = max(grads, max(to._grad_errs(got_g, want_g)))
+    return [("oneshot.supernet_forward logits, 4 draws (all IBN, all fused, 2 mixed), "
+             "small base, / max", "test_supernet_forward_matches_reference", to.LOGIT_TOL,
+             logits),
+            ("oneshot.train_step params after one SGD step vs jax.value_and_grad, 4 draws, "
+             "per leaf / max(1, max)", "test_sgd_step_matches_reference", to.PARAM_TOL, step),
+            ("the same step's gradients, per leaf / that leaf's max |gradient|",
+             "test_sgd_step_matches_reference", to.GRAD_TOL, grads)]
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
             + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
-            + gradient_rows())
+            + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
