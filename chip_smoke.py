@@ -97,11 +97,26 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                its shared block on ``flash_attention`` at head_dim 112), fp32
                and bf16: the card's logits (kernels) against the port's CPU
                forward (plain versions), with each kernel's launch count;
-15. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+15. train    — the LLM families' training step at full width, 8 x 1024
+               tokens of the LM stream a step, AdamW as ``launch/train.py``
+               sets it: qwen3-1.7B (28 layers, ``flash_pallas``,
+               remat="full": exactly 56 ``flash_attention`` launches a step,
+               its loss falling by 0.3 over 30 steps; one step each at
+               remat="dots" and microbatches=2), mamba2-370m (48 layers:
+               exactly 48 ``ssd_scan`` launches) and qwen2-moe-a2.7b cut to
+               2 layers (exactly 18 ``gmm`` and 2 ``flash_attention``
+               launches); ms per step, tokens/s, peak memory, model TFLOP/s
+               and the device time by kernel and in the plain-VJP
+               backwards' and the optimizer's profiler ranges; the step card
+               against CPU at the llm cuts in fp32 (loss, every gradient
+               leaf, one AdamW update) with two planted faults the
+               gradient limit must fail; the loop resumed after an injected
+               failure from a bitwise checkpoint;
+16. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search and oneshot for ibn_pointwise; serve, serve_ssm and
-serve_moe for flash_attention, ssd_scan and gmm) runs with every kernel's launch count set
-to 0 just before it and read just after. Any failure raises and exits
+Each main path (search and oneshot for ibn_pointwise; serve, serve_ssm,
+serve_moe and train for flash_attention, ssd_scan and gmm) runs with every
+kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
 ``--json PATH`` also writes every per-shape measurement to PATH.
@@ -109,12 +124,15 @@ convolutions.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -125,18 +143,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.config import RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.core import costmodel, has, nas, oneshot, scenarios, simulator  # noqa: E402
 from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.data.synthetic import LMStream  # noqa: E402
 from repro_torch.kernels import flash_attention, gmm, ibn_conv, ssd_scan  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
-from repro_torch.train import steps  # noqa: E402
+from repro_torch.train import checkpoint, steps  # noqa: E402
+from repro_torch.train.loop import LoopConfig, run_training  # noqa: E402
+from repro_torch.train.optim import make_optimizer  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: HBM3 rate, and the peak rate of each input
 # type (fp32 outside the tensor cores, bf16 dense on them)
@@ -1458,6 +1481,13 @@ def ssd_phase(card: str) -> dict:
     records.append(main)
     zamba = check_ssd(ZAMBA_SSD, torch.bfloat16, gen, timed=True)
     records.append(zamba)
+    # the backward at the training step's shapes (8 x 1024 tokens give the
+    # prefill's capacity), fp32 and bf16
+    backward = {}
+    for name in ("gate/up", "down"):
+        shape = moe_gmm_shapes()[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            backward[f"{name} {str(dtype)[6:]}"] = check_gmm_backward(*shape, dtype, gen)
     worst = max(r["rel_err"] / r["tol"] for r in records)
     worst_state = max(r["state_rel_err"] for r in records) / SSD_TOL[torch.float32]
     controls = [(r["shape"], name, v) for r in records
@@ -1547,6 +1577,66 @@ def check_gmm(e, c, d, f, dtype, gen, timed: bool, layout: str = "contiguous") -
     return rec
 
 
+def check_gmm_backward(e, c, d, f, dtype, gen) -> dict:
+    """gmm's backward on the card (``gmm.Gmm``: dx = dy·wᵀ and dw = xᵀ·dy,
+    two launches on the transposed views it passes) against autograd of the
+    plain version (ref.gmm_ref) on the same inputs, each relative to its
+    plain max |value|, and timed against the same two products on
+    ``torch.bmm``. Controls of the limit on these inputs, faults it must
+    catch, for each product: the plain version with the last 64 of its K
+    (F for dx, C for dw) dropped, and with the last 128-row tile of its
+    output zeroed."""
+    x = torch.randn((e, c, d), generator=gen, device=DEV).to(dtype).requires_grad_(True)
+    w = (torch.randn((e, d, f), generator=gen, device=DEV) / math.sqrt(d)).to(dtype) \
+        .requires_grad_(True)
+    dy = torch.randn((e, c, f), generator=gen, device=DEV).to(dtype)
+    y = gmm.gmm(x, w)
+    before = gmm.LAUNCHES
+    got = torch.autograd.grad(y, (x, w), dy, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = gmm.LAUNCHES - before
+    plain = gmm_ref(x, w)
+    want = torch.autograd.grad(plain, (x, w), dy, retain_graph=True)
+    xd, wd, dyd = x.detach(), w.detach(), dy
+    controls = {
+        "dx": {"dropped_k_panel": gmm_ref(dyd[..., :f - 64], wd[..., :f - 64].transpose(1, 2)),
+               "zeroed_row_tile": want[0].clone().index_fill_(
+                   1, torch.arange((c - 1) // 128 * 128, c, device=DEV), 0)},
+        "dw": {"dropped_k_panel": gmm_ref(xd[:, :c - 64].transpose(1, 2), dyd[:, :c - 64]),
+               "zeroed_row_tile": want[1].clone().index_fill_(
+                   1, torch.arange((d - 1) // 128 * 128, d, device=DEV), 0)}}
+    rec = {"shape": (e, c, d, f), "dtype": str(dtype)[6:], "launches": launches,
+           "tol": GMM_TOL[dtype], "controls": {}}
+    for name, g, p in (("dx", got[0], want[0]), ("dw", got[1], want[1])):
+        scale = p.float().abs().max().item()
+        rec[f"{name}_max_abs_err"] = (g.float() - p.float()).abs().max().item()
+        rec[f"{name}_rel_err"] = rec[f"{name}_max_abs_err"] / scale
+        if not (g.dtype == dtype and torch.isfinite(g.float()).all()):
+            raise AssertionError(f"gmm's {name} is not finite {dtype}: {rec}")
+        for ctl, t in controls[name].items():
+            rec["controls"][f"{name} {ctl}"] = (t.float() - p.float()).abs().max().item() / scale
+    if launches != 2 or max(rec["dx_rel_err"], rec["dw_rel_err"]) > GMM_TOL[dtype]:
+        raise AssertionError(f"gmm's backward disagrees with its plain version: {rec}")
+    if not min(rec["controls"].values()) > GMM_TOL[dtype]:
+        raise AssertionError(f"the gmm backward's limit passes a control: {rec['controls']}")
+    if dtype == torch.bfloat16:
+        rec["ms"] = time_ms(lambda: torch.autograd.grad(y, (x, w), dy, retain_graph=True))
+        rec["plain_ms"] = time_ms(
+            lambda: torch.autograd.grad(plain, (x, w), dy, retain_graph=True), iters=5)
+        rec["library_ms"] = time_ms(lambda: (torch.bmm(dyd, wd.transpose(1, 2)),
+                                             torch.bmm(xd.transpose(1, 2), dyd)))
+        # of the kernel's time: the copies ``gmm.launch`` makes of the
+        # transposed views a TMA map cannot describe
+        rec["copy_ms"] = time_ms(lambda: (gmm._tma_operands(dyd, wd.transpose(1, 2)),
+                                          gmm._tma_operands(xd.transpose(1, 2), dyd)))
+        # each launch's own bound: dx is (E, C, F)·(E, F, D), dw (E, D, C)·(E, C, F)
+        parts = (gmm_bound_parts_ms(e, c, f, d, dtype), gmm_bound_parts_ms(e, d, c, f, dtype))
+        rec["bound_ms"] = sum(max(p) for p in parts)
+        rec["bound_by"] = ("bytes" if sum(p[0] for p in parts) >= sum(p[1] for p in parts)
+                           else "operations")
+    return rec
+
+
 def moe_gmm_shapes() -> dict:
     """qwen2-moe-a2.7b's expert products (E, C, D, F): the prefill of
     8 x 1024 tokens (capacity 688) and a decode step at batch 8 (C 32)."""
@@ -1582,6 +1672,13 @@ def gmm_phase(card: str) -> dict:
         records.append(check_gmm(*shape, torch.float32, gen, timed=False))
         main[name] = check_gmm(*shape, torch.bfloat16, gen, timed=True)
         records.append(main[name])
+    # the backward at the training step's shapes (8 x 1024 tokens give the
+    # prefill's capacity), fp32 and bf16
+    backward = {}
+    for name in ("gate/up", "down"):
+        shape = moe_gmm_shapes()[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            backward[f"{name} {str(dtype)[6:]}"] = check_gmm_backward(*shape, dtype, gen)
     worst = max(r["rel_err"] / r["tol"] for r in records)
     print(f"gmm: {len(records)} checks against the plain version (fp32 and bf16, "
           f"tests/test_kernels.py's shapes, ragged edges, strided views, C "
@@ -1600,7 +1697,15 @@ def gmm_phase(card: str) -> dict:
               f"{r['rel_err']:.3g} of max |y| (bmm {r['library_rel_err']:.3g}); controls: last "
               f"K panel dropped {ctl['dropped_k_panel']:.3g}, last row tile zeroed "
               f"{ctl['zeroed_row_tile']:.3g} (limit {GMM_TOL[torch.bfloat16]})  [{card}]")
-    return {"records": records, "main": main}
+    for name, r in backward.items():
+        timing = (f"; kernel {r['ms']:.4f} ms ({r['copy_ms']:.4f} of it the operand copies), "
+                  f"plain {r['plain_ms']:.4f} ms, bmm "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  if "ms" in r else "")
+        print(f"gmm backward: {name} (E, C, D, F) = {r['shape']}: dx {r['dx_rel_err']:.3g}, dw "
+              f"{r['dw_rel_err']:.3g} of max |plain| (limit {r['tol']}), 2 launches{timing}; "
+              f"controls {min(r['controls'].values()):.3g} at least  [{card}]")
+    return {"records": records, "main": main, "backward": backward}
 
 
 def serve_ssm_phase(card: str) -> dict:
@@ -1963,6 +2068,489 @@ def llm_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train: the LLM families' training step on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# each model's run (LMStream at seed 0): warm-up steps, timed steps
+# (synchronised wall clock; every launch count at 0 just before), profiled
+# steps (16 in all); qwen3's goes on to TRAIN_STEPS, over which its loss
+# must fall by TRAIN_LOSS_DROP (the mean of the last 5 against the first 5,
+# as tests/test_train.py's test_loss_decreases asks)
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, TRAIN_STEPS = 3, 10, 3, 30
+TRAIN_LOSS_DROP = 0.3
+TRAIN_MOE_LAYERS = 2  # qwen2-moe-a2.7b at full width: 1.76 B parameters, 28 GB of state
+# card against CPU at the llm phase's cuts, fp32, 2 x 256 tokens: the loss
+# relative; each leaf's gradient over that leaf's max |gradient|; one AdamW
+# update (new - old) from the card's gradients, on the card and on the CPU,
+# per leaf over that leaf's max |update|, beyond one rounding step of the
+# new parameter. (The update is taken from one set of gradients: AdamW's
+# first update is lr x g / (|g| + eps), the sign of g, which flips wherever
+# a gradient smaller than the two devices' rounding difference crosses 0,
+# thousands of elements at these sizes. And the new parameter is an fp32
+# number: at lr 2e-4 one step of it at |p| 0.25 is 1.5e-4 of the update, so
+# two correct devices that round p - lr·u to neighbouring values differ
+# by that much.)
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, TRAIN_TOL = 2, 256, 1e-4
+# faults the gradient limit must see: one product's dw dropped in gmm's
+# backward (K4), and the B gradient of every ssd_scan backward zeroed (K3)
+TRAIN_PLANTED = {"gmm_dw_dropped": MOE_ARCH, "ssd_scan_dB_zeroed": SSM_ARCH}
+# the loop: mamba2-370m cut to 4 layers (129 M parameters), checkpoints
+# every 5 steps, a failure injected after step 7, then the same call resumes
+TRAIN_LOOP_LAYERS, TRAIN_LOOP_STEPS, TRAIN_LOOP_EVERY, TRAIN_LOOP_FAIL = 4, 12, 5, 7
+# device kernels by symbol: the port's kernels, then cuBLAS's
+TRAIN_KERNEL_KEYS = {"flash_attention": ("attn_fwd",), "ssd_scan": ("ssd_chunk_scan",),
+                     "gmm": ("gmm_bf16", "gmm_f32"),
+                     "cublas": ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")}
+TRAIN_RANGES = ("flash_attention.backward", "ssd_scan.backward", "optimizer.step")
+
+
+def _train_run(cfg, batch: int, seq: int, **train) -> RunConfig:
+    """launch/train.py's TrainConfig (warmup 5, lr 1e-3, AdamW) over the
+    phase's steps."""
+    return RunConfig(model=cfg, shape=ShapeConfig("train", seq, batch, "train"),
+                     train=TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=5,
+                                       learning_rate=1e-3, **train))
+
+
+def train_flops(cfg, params, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step, by src/repro/launch/roofline.py's
+    ``model_flops`` for a train shape, with N counted from the port's own
+    parameter tree: 6·N·tokens, N the matmul parameters (the embedding
+    lookup left out unless tied, experts scaled by top-k / E), plus
+    3·4·(S/2)·H·hd per token per attention layer."""
+    n = sum(t.numel() for t in tree_leaves(params))
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model
+    if cfg.family == "moe":
+        expert = sum(params["layers"]["moe"][k].numel() for k in ("wg", "wu", "wo"))
+        n = n - expert + expert * cfg.num_experts_per_tok / cfg.num_experts
+    n_attn = {"dense": cfg.num_layers, "vlm": cfg.num_layers, "audio": cfg.num_layers,
+              "moe": cfg.num_layers,
+              "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1)}.get(cfg.family, 0)
+    att = 4.0 * (seq / 2) * cfg.num_heads * cfg.resolved_head_dim * n_attn
+    return 6.0 * n * tokens + 3.0 * att * tokens
+
+
+class _RawProfile(torch.autograd.profiler.profile):
+    """torch's profiler (CPU and CUDA activity) that keeps kineto's raw
+    events and skips building its Python event tree: that takes over a
+    minute for the ~10^5 ops of three mamba2 steps (its plain-VJP scans)."""
+
+    def __init__(self):
+        # a private name of torch's (torch calls it where it builds the tree,
+        # lazily or at exit): fail here, not by a silent minute of parsing,
+        # if a torch release renames it. ``_train_breakdown`` fails if
+        # ``kineto_results`` is gone.
+        if not hasattr(torch.autograd.profiler.profile, "_parse_kineto_results"):
+            raise AssertionError("torch's profiler has no _parse_kineto_results to override")
+        super().__init__(use_device="cuda", use_kineto=True)
+
+    def _parse_kineto_results(self, result, *args, **kwargs):
+        return []
+
+
+def _train_breakdown(prof: _RawProfile, steps_run: int) -> dict:
+    """Device ms per step from a finished ``_RawProfile``: all of it, by
+    kernel symbol (TRAIN_KERNEL_KEYS, the rest "elementwise and other"),
+    and in each of TRAIN_RANGES (the plain-VJP backwards and the optimizer:
+    the kernels launched by the ops that start inside the range on its
+    thread, as torch's profiler attributes them)."""
+    if getattr(prof, "kineto_results", None) is None:
+        raise AssertionError("torch's profiler kept no kineto_results: its names have changed")
+    per_kernel, by_corr, ops, ranges = {}, {}, {}, []
+    for e in prof.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation():  # the device side of a range, not a kernel
+                continue
+            ms = e.duration_ns() / 1e6 / steps_run
+            per_kernel[e.name()] = per_kernel.get(e.name(), 0.0) + ms
+            by_corr[e.linked_correlation_id()] = by_corr.get(e.linked_correlation_id(), 0.0) + ms
+        elif e.linked_correlation_id() == 0:  # an op or a range, not a runtime call
+            ops.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.correlation_id()))
+            if e.name() in TRAIN_RANGES:
+                ranges.append((e.name(), e.start_thread_id(), e.start_ns(), e.end_ns()))
+    for thread_ops in ops.values():
+        thread_ops.sort()
+    in_range = {name: 0.0 for name in TRAIN_RANGES}
+    for name, thread, start, end in ranges:
+        thread_ops = ops[thread]
+        lo = bisect.bisect_left(thread_ops, (start, -1))
+        hi = bisect.bisect_right(thread_ops, (end, math.inf))
+        in_range[name] += sum(by_corr.get(corr, 0.0) for _, corr in thread_ops[lo:hi])
+    by = {name: sum(v for k, v in per_kernel.items() if any(key in k for key in keys))
+          for name, keys in TRAIN_KERNEL_KEYS.items()}
+    by["elementwise and other"] = sum(per_kernel.values()) - sum(by.values())
+    return {"device_ms": sum(per_kernel.values()), "by_kernel": by, "ranges": in_range,
+            "top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def _vjp_call_ms(kind: str) -> float:
+    """Device ms of one plain-VJP backward at the training shape, alone (CUDA
+    events): K2's at qwen3-1.7B's attention (B 8, H 16, KV 8, S 1024, hd
+    128, bf16, causal), K3's at mamba2-370m's scan (B 8, S 1024, H 32, P 64,
+    N 128, chunk 256, bf16)."""
+    gen = torch.Generator(DEV).manual_seed(21)
+    if kind == "flash_attention":
+        b, h, kv, s, hd = SERVE_ATTN
+        q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
+                   for t in attention_inputs(b, h, kv, s, s, hd, torch.bfloat16, gen, "bshd"))
+        inputs = (q, k, v)
+        out = kops.flash_attention(q, k, v, causal=True)
+    else:
+        b, s, h, p, g, n, chunk = SERVE_SSD
+        inputs = tuple(t.detach().requires_grad_(True)
+                       for t in ssd_inputs(b, s, h, p, g, n, torch.bfloat16, gen))
+        out = kops.ssd_scan(*inputs, chunk=chunk)[0]
+    ct = torch.randn(out.shape, generator=gen, device=DEV).to(out.dtype)
+    return time_ms(lambda: torch.autograd.grad(out, inputs, ct, retain_graph=True),
+                   iters=5, warmup=1)
+
+
+def _train_model(card: str, label: str, cfg, remat: str, expect: dict,
+                 n_steps: int = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED,
+                 variants: bool = False) -> dict:
+    """One model's training run at 8 x 1024 tokens (see TRAIN_*): ms per step
+    (wall and device), tokens/s, peak memory, model TFLOP/s, the device
+    breakdown, the launches of each kernel per step (exactly ``expect``) and
+    the losses; with ``variants``, one more step at remat="dots" and one at
+    microbatches=2."""
+    run = _train_run(cfg, TRAIN_BATCH, TRAIN_SEQ, remat=remat)
+    step = steps.make_train_step(run)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device=DEV)
+    state = {"params": params, "opt": make_optimizer(run.train).init(params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    flops = train_flops(cfg, params, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    del params
+    stream = LMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in stream.batch_at(i).items()}
+               for i in range(n_steps + 4)]  # set-up: the data, made and uploaded once
+    losses = []
+
+    def steps_of(n, fn=step):
+        nonlocal state
+        for _ in range(n):
+            state, m = fn(state, batches[len(losses)])
+            losses.append(m["loss"])
+
+    steps_of(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    # --- the main path: counts at 0 just before, read just after
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps_of(TRAIN_TIMED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    launches = {k: v / TRAIN_TIMED for k, v in launch_counts().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != expect:
+        raise AssertionError(f"train {label}: launches per step {launches}, expected {expect}")
+    t0 = time.perf_counter()
+    with _RawProfile() as prof:
+        steps_of(TRAIN_PROFILED)
+        torch.cuda.synchronize()
+    bd = _train_breakdown(prof, TRAIN_PROFILED)
+    profile_s = time.perf_counter() - t0
+    steps_of(n_steps - len(losses))
+    out = {"n_params": n_params, "init_s": init_s, "remat": remat, "ms": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, "peak_gb": peak_gb,
+           "model_flops": flops, "tflops": flops / ms / 1e9,
+           "launches_per_step": launches, **bd}
+    out["mfu"] = out["tflops"] * 1e12 / PEAK_FLOP_PER_S[torch.bfloat16]
+    if variants:
+        for name, kw in (("remat=dots", dict(remat="dots")),
+                         ("microbatches=2", dict(remat=remat, microbatches=2))):
+            vstep = steps.make_train_step(_train_run(cfg, TRAIN_BATCH, TRAIN_SEQ, **kw))[0]
+            steps_of(1, vstep)  # its first step: cuBLAS plans, checkpoint contexts
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            steps_of(1, vstep)
+            torch.cuda.synchronize()
+            out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "launches": {k: v for k, v in launch_counts().items() if v}}
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"train {label}: non-finite loss {losses.tolist()}")
+    out["losses"] = losses.tolist()
+    out["loss_drop"] = (losses[:5].mean() - losses[n_steps - 5:n_steps].mean()).item()
+    out["profile_s"] = profile_s
+    del state, batches
+    torch.cuda.empty_cache()
+
+    dev_ms = bd["device_ms"] or math.nan  # nan: the profiler saw no CUDA activity
+    print(f"train: {label} ({n_params / 1e9:.3f} B params, fp32 master weights, bf16 compute, "
+          f"remat={remat}, AdamW), {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: {ms:.2f} ms per "
+          f"step wall ({TRAIN_TIMED} steps), {dev_ms:.2f} ms on the device "
+          f"({dev_ms / ms:.1%} busy), {out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak_gb:.2f} GB allocated; {flops / 1e12:.2f} model TFLOP a step, "
+          f"{out['tflops']:.1f} TFLOP/s = {out['mfu']:.1%} of the H100 SXM dense bf16 peak "
+          f"(989 TFLOP/s); launches per step {launches}  [{card}]")
+    print("train:   device ms per step by kernel: " + ", ".join(
+        f"{k} {v:.3f} ({v / dev_ms:.1%})" for k, v in bd["by_kernel"].items()))
+    print("train:   in the profiler ranges: " + ", ".join(
+        f"{k} {v:.3f} ({v / dev_ms:.1%})" for k, v in bd["ranges"].items() if v))
+    for name, v in bd["top"].items():
+        print(f"train:     {v:.3f} ms  {name[:90]}")
+    print(f"train:   loss over {n_steps} steps {losses[0]:.3f} -> {losses[n_steps - 1]:.3f} "
+          f"(first 5 against last 5: {out['loss_drop']:.3f} lower); {TRAIN_PROFILED} profiled "
+          f"steps and their reading {profile_s:.1f} s  [{card}]")
+    for name in ("remat=dots", "microbatches=2"):
+        if name in out:
+            v = out[name]
+            print(f"train:   one step at {name}: {v['ms']:.2f} ms wall, peak {v['peak_gb']:.2f} "
+                  f"GB, launches {v['launches']}  [{card}]")
+    return out
+
+
+def _stepped(params, grads, run) -> dict:
+    """A copy of ``params`` after one AdamW step from ``grads``, which the
+    step clips in place."""
+    new = tree_map(torch.clone, params)
+    opt = make_optimizer(run.train)
+    opt.step(new, grads, opt.init(new))
+    return new
+
+
+def _update_errs(got, want, old) -> list[float]:
+    """Per leaf, how far the update ``got - old`` is from ``want - old``
+    beyond one rounding step of the new parameter (the spacing of its type
+    at ``want``), over the leaf's max |want - old|; 0 where both updates
+    are all 0, inf where only ``want``'s is. ``want`` and ``old`` on the
+    CPU."""
+    errs = []
+    for g, w, o in zip(tree_leaves(got), tree_leaves(want), tree_leaves(old)):
+        step = (torch.nextafter(w, torch.full_like(w, math.inf)) - w).double()
+        excess = ((g.cpu().double() - w.double()).abs() - step).clamp_min(0).max().item()
+        scale = (w.double() - o.double()).abs().max().item()
+        errs.append(excess / scale if scale else (0.0 if excess == 0 else math.inf))
+    return errs
+
+
+@contextlib.contextmanager
+def _train_fault(fault: str):
+    """A fault the training gradient check must see, for the length of a
+    ``with``: gmm's first backward product with no dw (K4's dw launch left
+    out), or every ssd_scan backward's dB zeroed (K3's plain VJP)."""
+    gmm_bwd, ssd_bwd, calls = gmm.Gmm.backward, ssd_scan.SsdScan.backward, []
+
+    def no_dw(ctx, dy):
+        dx, dw = gmm_bwd(ctx, dy)
+        calls.append(dw)
+        return dx, (torch.zeros_like(dw) if len(calls) == 1 else dw)
+
+    def no_db(ctx, dy, dstate):
+        out = list(ssd_bwd(ctx, dy, dstate))
+        out[3] = torch.zeros_like(out[3])
+        return tuple(out)
+
+    if fault == "gmm_dw_dropped":
+        gmm.Gmm.backward = staticmethod(no_dw)
+    else:
+        ssd_scan.SsdScan.backward = staticmethod(no_db)
+    try:
+        yield
+    finally:
+        gmm.Gmm.backward, ssd_scan.SsdScan.backward = staticmethod(gmm_bwd), staticmethod(ssd_bwd)
+
+
+def _train_check(card: str) -> dict:
+    """The training step card against CPU, fp32, at the llm phase's cuts
+    (``_cut_config``), 2 x 256 tokens, on the same parameters: loss,
+    gradients and one AdamW update at TRAIN_TOL; MoE routing replayed from
+    the card on the CPU (``RouteReplay``); the planted faults must fail the
+    gradient limit."""
+    out = {}
+    for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH):
+        cfg = _cut_config(arch, "float32")
+        run = _train_run(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)
+        host = LMStream(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                        seed=0).batch_at(0)
+        batch = {k: torch.from_numpy(v) for k, v in host.items()}
+        card_batch = {k: v.to(DEV) for k, v in batch.items()}
+        params = api.init(1, cfg, device=DEV)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        before = launch_counts()
+        with RouteRecorder() as routes:
+            loss, _, grads = steps.value_and_grad(params, card_batch, run)
+            torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        with RouteReplay(t.cpu() for t in routes.top_e) as rep:
+            want_loss, _, want = steps.value_and_grad(cpu_params, batch, run)
+        loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        grad_err = max(_grad_errs(grads, want))
+        faults = {}
+        for fault, where in TRAIN_PLANTED.items():
+            if where == arch:
+                with _train_fault(fault), RouteReplay(routes.top_e):
+                    faulty = steps.value_and_grad(params, card_batch, run)[2]
+                faults[fault] = max(_grad_errs(faulty, want))
+                del faulty
+        del want
+        cpu_grads = tree_map(lambda t: t.cpu(), grads)  # before the card's step clips grads
+        upd_err = max(_update_errs(_stepped(params, grads, run),
+                                   _stepped(cpu_params, cpu_grads, run), cpu_params))
+        del grads, cpu_grads, params, cpu_params
+        torch.cuda.empty_cache()
+        bad = {f: e for f, e in faults.items() if not e > TRAIN_TOL}
+        if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL and upd_err <= TRAIN_TOL) or bad:
+            raise AssertionError(f"train check {arch}: loss {loss_err}, gradients {grad_err}, "
+                                 f"update {upd_err} (tolerance {TRAIN_TOL}); planted faults "
+                                 f"that passed the limit: {bad}")
+        routed = (f", the card's expert choices replayed on the CPU (its own top-k agrees "
+                  f"on {rep.agreement:.3f})" if rep.total else "")
+        planted = "".join(f"; planted {f}: {e:.3g} (must fail)" for f, e in faults.items())
+        print(f"train: check {arch} {cfg.num_layers} layers, fp32, {TRAIN_CHECK_BATCH} x "
+              f"{TRAIN_CHECK_SEQ} tokens, card vs CPU: loss {loss_err:.3g}, gradients {grad_err:.3g} "
+              f"of each leaf's max, one AdamW update {upd_err:.3g} of each leaf's max beyond a "
+              f"rounding step of the parameter (tolerance {TRAIN_TOL}){routed}{planted}; "
+              f"launches {launches}  [{card}]")
+        out[arch] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "update_rel_err": upd_err, "planted": faults, "launches": launches,
+                     "route_agreement": rep.agreement if rep.total else None}
+    return out
+
+
+def _train_loop(card: str) -> dict:
+    """``run_training`` on mamba2-370m cut to TRAIN_LOOP_LAYERS layers into a
+    temporary directory (removed after): a failure injected after step
+    TRAIN_LOOP_FAIL with checkpoints every TRAIN_LOOP_EVERY steps, then the
+    same call resumes; the state it resumes from must be, bitwise, the state
+    saved at the last checkpoint. Also the seconds an async save of that
+    state takes (to return: the host snapshot; to finish: the write)."""
+    cfg = configs.get(SSM_ARCH).scaled(num_layers=TRAIN_LOOP_LAYERS)
+    run = _train_run(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step = steps.make_train_step(run)[0]
+    stream = LMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(DEV) for k, v in stream.batch_at(i).items()}
+
+    def fresh():
+        params = api.init(0, cfg, device=DEV)
+        return {"params": params, "opt": make_optimizer(run.train).init(params)}
+
+    saved, seen = {}, {}
+
+    def snapshotting(state, batch):
+        state, m = step(state, batch)
+        saved[int(state["opt"]["step"])] = tree_map(torch.clone, state)
+        return state, m
+
+    def recording(state, batch):  # its first call gets the restored state
+        seen.setdefault("first", tree_map(torch.clone, state))
+        return step(state, batch)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg_fail = LoopConfig(total_steps=TRAIN_LOOP_STEPS, ckpt_every=TRAIN_LOOP_EVERY,
+                              ckpt_dir=tmp, fail_at_step=TRAIN_LOOP_FAIL, log_every=100,
+                              async_ckpt=False)
+        try:
+            run_training(snapshotting, fresh(), batch_at, cfg_fail, log_fn=lambda s: None)
+            raise AssertionError("train loop: the injected failure did not happen")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        t0 = time.perf_counter()
+        res = run_training(recording, fresh(), batch_at,
+                           dataclasses.replace(cfg_fail, fail_at_step=None, async_ckpt=True),
+                           log_fn=lambda s: None)
+        resume_s = time.perf_counter() - t0
+        want = saved[TRAIN_LOOP_EVERY]
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(seen["first"]),
+                                                      tree_leaves(want)))
+        if not (res.resumed_from == TRAIN_LOOP_EVERY and res.final_step == TRAIN_LOOP_STEPS
+                and same and checkpoint.latest_step(tmp) == TRAIN_LOOP_STEPS):
+            raise AssertionError(f"train loop: resumed from {res.resumed_from}, final step "
+                                 f"{res.final_step}, restored state bitwise {same}")
+        state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(want)) / 1e9
+        t0 = time.perf_counter()
+        pending = checkpoint.save(tmp, 99, want, blocking=False)
+        return_s = time.perf_counter() - t0
+        pending.join()
+        write_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train: loop on {SSM_ARCH} cut to {TRAIN_LOOP_LAYERS} layers ({state_gb:.2f} GB of "
+          f"state): failure injected after step {TRAIN_LOOP_FAIL}, resumed from step "
+          f"{res.resumed_from} (the state bitwise the one saved there), final step "
+          f"{res.final_step}, resumed run {resume_s:.2f} s; an async save returns in "
+          f"{return_s:.3f} s (the host snapshot) and is written in {write_s:.3f} s  [{card}]")
+    return {"resumed_from": res.resumed_from, "final_step": res.final_step,
+            "state_gb": state_gb, "resume_s": resume_s, "async_save_return_s": return_s,
+            "async_save_write_s": write_s}
+
+
+def _train_keys(res: dict, kernel: str, step: str) -> dict:
+    """A kernel's keys of the ``kernels`` line from its training run: its
+    launches and device ms per step, and its plain-VJP backward's device ms
+    per step where it has one."""
+    out = {"launches_per_train_step": res["launches_per_step"][kernel],
+           "device_ms_per_train_step": res["by_kernel"][kernel], "train_step": step}
+    vjp = res["ranges"].get(f"{kernel}.backward")
+    if vjp is not None:
+        out["plain_vjp_backward_device_ms_per_train_step"] = vjp
+    return out
+
+
+def train_phase(card: str) -> dict:
+    """The LLM families' training step on the card at full width: qwen3-1.7B
+    (28 layers, flash_pallas, remat="full": 56 K2 launches a step, 28 forward
+    and 28 in the recompute), mamba2-370m (48 layers, remat="none": 48 K3
+    launches) and qwen2-moe-a2.7b cut to TRAIN_MOE_LAYERS layers
+    (flash_pallas, remat="none": 9 K4 launches a layer, 3 forward and 6
+    backward, and 1 K2); each plain-VJP backward timed alone; then the card
+    against the CPU (``_train_check``) and the loop (``_train_loop``)."""
+    part_s, t0 = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        part_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    qwen3 = configs.get(SERVE_ARCH).scaled(attn_impl="flash_pallas")
+    qwen3_out = _train_model(card, f"{SERVE_ARCH} full width, {qwen3.num_layers} layers", qwen3,
+                             "full", {"flash_attention": 2 * qwen3.num_layers},
+                             n_steps=TRAIN_STEPS, variants=True)
+    if not qwen3_out["loss_drop"] >= TRAIN_LOSS_DROP:
+        raise AssertionError(f"train {SERVE_ARCH}: the loss fell {qwen3_out['loss_drop']} over "
+                             f"{TRAIN_STEPS} steps, not {TRAIN_LOSS_DROP}")
+    done("qwen3")
+    mamba = configs.get(SSM_ARCH)
+    mamba_out = _train_model(card, f"{SSM_ARCH} full width, {mamba.num_layers} layers", mamba,
+                             "none", {"ssd_scan": mamba.num_layers})
+    done("mamba2")
+    moe_cfg = configs.get(MOE_ARCH).scaled(num_layers=TRAIN_MOE_LAYERS, attn_impl="flash_pallas")
+    moe_out = _train_model(card, f"{MOE_ARCH} full width, cut to {TRAIN_MOE_LAYERS} layers",
+                           moe_cfg, "none", {"gmm": 9 * TRAIN_MOE_LAYERS,
+                                             "flash_attention": TRAIN_MOE_LAYERS})
+    done("moe")
+    vjp = {kind: _vjp_call_ms(kind) for kind in ("flash_attention", "ssd_scan")}
+    for kind, per_step, res in (("flash_attention", qwen3.num_layers, qwen3_out),
+                                ("ssd_scan", mamba.num_layers, mamba_out)):
+        ms = vjp[kind] * per_step
+        print(f"train: {kind}'s plain-VJP backward alone at the step's shape: {vjp[kind]:.3f} ms "
+              f"a call (CUDA events), x {per_step} = {ms:.2f} ms a step, "
+              f"{ms / (res['device_ms'] or math.nan):.1%} of the step's device time  [{card}]")
+    done("vjp")
+    check = _train_check(card)
+    done("check")
+    loop = _train_loop(card)
+    done("loop")
+    print("train: seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return {"qwen3": qwen3_out, "mamba2": mamba_out, "moe": moe_out, "vjp_call_ms": vjp,
+            "check": check, "loop": loop, "part_s": part_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -2011,6 +2599,8 @@ def main() -> int:
     serve_moe = timed("serve_moe", serve_moe_phase)
     torch.cuda.empty_cache()
     llm = timed("llm", llm_phase)
+    torch.cuda.empty_cache()
+    train = timed("train", train_phase)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
@@ -2055,6 +2645,8 @@ def main() -> int:
         "bound_by": attn["main"]["bound_by"],
         "library_ms": attn["main"]["library_ms"],
         "launches_per_prefill": serve["prefill_launches"],
+        **_train_keys(train["qwen3"], "flash_attention",
+                      "qwen3-1.7B at full width, 28 layers, remat=full, 8 x 1024 tokens"),
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2079,6 +2671,8 @@ def main() -> int:
         "zamba2": {k: ssd["zamba"][k] for k in ("shape", "ms", "device_ms", "plain_ms",
                                                  "device_plain_ms", "bound_ms")},
         "controls": {f"{shape} {name}": v for shape, name, v in ssd["controls"]},
+        **_train_keys(train["mamba2"], "ssd_scan",
+                      "mamba2-370m at full width, 48 layers, remat=none, 8 x 1024 tokens"),
     }, {
         "name": "gmm",
         "route": "cuda",
@@ -2097,6 +2691,14 @@ def main() -> int:
         "products": {name: {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                 "bound_ms", "bound_by", "controls")}
                      for name, r in gmm_res["main"].items()},
+        "backward_products": {name: {k: r[k] for k in ("shape", "dx_rel_err", "dw_rel_err",
+                                                          "tol", "controls", "ms", "copy_ms",
+                                                          "plain_ms", "library_ms", "bound_ms",
+                                                          "bound_by")
+                                     if k in r}
+                              for name, r in gmm_res["backward"].items()},
+        **_train_keys(train["moe"], "gmm", f"qwen2-moe-a2.7b at full width cut to "
+                      f"{TRAIN_MOE_LAYERS} layers, remat=none, 8 x 1024 tokens"),
     }]}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
@@ -2104,7 +2706,7 @@ def main() -> int:
             {"card": card, "kernel": kern, "model": model, "search": search,
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
-             "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm,
+             "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,
              "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Shared utilities of the PyTorch port: dtypes, name-folded generators,
-parameter-tree helpers, integer helpers and the bounded FIFO memo.
+parameter-tree helpers (leaves, paths, casts, the global norm), integer
+helpers and the bounded FIFO memo.
 
 Counterpart of ``repro/common.py``. Imports torch and numpy only.
 """
@@ -61,16 +62,18 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 def tree_unflatten(tree: PyTree, leaves: list) -> PyTree:
     """Inverse of ``tree_leaves``: ``tree``'s structure with ``leaves``."""
-    it = iter(leaves)
+    return _rebuild(tree, iter(leaves))
 
-    def rebuild(t):
-        if isinstance(t, dict):
-            return {k: rebuild(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rebuild(x) for x in t)
-        return next(it)
 
-    return rebuild(tree)
+def _rebuild(t: PyTree, it) -> PyTree:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (gradients, a whole
+    # state) alive until the cyclic collector runs
+    if isinstance(t, dict):
+        return {k: _rebuild(v, it) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild(x, it) for x in t)
+    return next(it)
 
 
 def tree_from_numpy(np_tree: PyTree, device="cuda") -> PyTree:
@@ -86,6 +89,51 @@ def tree_from_numpy(np_tree: PyTree, device="cuda") -> PyTree:
             t = torch.from_numpy(a.copy())
         leaves.append(t.to(device))
     return tree_unflatten(np_tree, leaves)
+
+
+def tree_cast(tree: PyTree, dtype) -> PyTree:
+    """Every floating-point leaf cast to ``dtype`` (a leaf already of that
+    type is returned as is); integer leaves unchanged."""
+    dtype = dtype_of(dtype)
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares: a 0-d
+    fp32 tensor on the leaves' device."""
+    sums = [t.float().square().sum() for t in tree_leaves(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def tree_paths(tree: PyTree, _prefix: tuple = ()) -> list[tuple[str, Any]]:
+    """Flatten a tree into ('a/b/0', leaf) pairs: dict keys and sequence
+    indices joined by '/', dict keys in sorted order and ``None`` holding no
+    leaf, as ``jax.tree_util`` flattens a tree. The names are a checkpoint's
+    array names, the same for the reference's tree and the port's."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in tree_paths(tree[k], _prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, t in enumerate(tree) for pair in tree_paths(t, _prefix + (str(i),))]
+    return [("/".join(_prefix), tree)]
+
+
+def tree_unflatten_paths(tree: PyTree, leaves: list) -> PyTree:
+    """Inverse of ``tree_paths``: ``tree``'s structure with ``leaves`` taken
+    in ``tree_paths``' order (dict keys sorted, ``None`` kept as it is)."""
+    return _rebuild_sorted(tree, iter(leaves))
+
+
+def _rebuild_sorted(t: PyTree, it) -> PyTree:
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        new = {k: _rebuild_sorted(t[k], it) for k in sorted(t)}
+        return {k: new[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild_sorted(x, it) for x in t)
+    return next(it)
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -25,7 +25,8 @@ Gradient (``FlashAttention``): the TPU kernel has no VJP, and the reference's
 models differentiate their jnp attention, the same function. So backward
 recomputes the plain version from the saved q, k and v, on their device, and
 takes autograd's VJP of it. The forward on the card still launches the
-kernel; a backward kernel is later work.
+kernel; a backward kernel is later work. The backward runs in a profiler
+range, ``flash_attention.backward``, that gives its device time.
 """
 from __future__ import annotations
 
@@ -136,8 +137,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        return ref.vjp(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=ctx.causal),
-                       ctx.saved_tensors, ctx.needs_input_grad[:3], (do,)) + (None,)
+        with torch.profiler.record_function("flash_attention.backward"):
+            return ref.vjp(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=ctx.causal),
+                           ctx.saved_tensors, ctx.needs_input_grad[:3], (do,)) + (None,)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

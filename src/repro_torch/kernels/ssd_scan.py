@@ -36,7 +36,9 @@ Mamba2 mixer differentiates its jnp chunked scan. So backward recomputes
 that scan in plain torch (``ref.ssd_chunked``) from the saved inputs, on
 their device, and takes autograd's VJP of it for x, dt, A, B and C; the
 final state's gradient may be absent (``None``) or a tensor. The forward on
-the card still launches the kernel; a backward kernel is later work.
+the card still launches the kernel; a backward kernel is later work. The
+backward runs in a profiler range, ``ssd_scan.backward``, that gives its
+device time.
 """
 from __future__ import annotations
 
@@ -267,8 +269,9 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        return ref.vjp(lambda *t: ref.ssd_chunked(*t, ctx.chunk), ctx.saved_tensors,
-                       ctx.needs_input_grad[:5], (dy, dstate)) + (None,)
+        with torch.profiler.record_function("ssd_scan.backward"):
+            return ref.vjp(lambda *t: ref.ssd_chunked(*t, ctx.chunk), ctx.saved_tensors,
+                           ctx.needs_input_grad[:5], (dy, dstate)) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

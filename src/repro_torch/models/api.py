@@ -1,8 +1,8 @@
-"""Family dispatcher. Counterpart of ``repro/models/api.py``.
+"""Family dispatcher + losses. Counterpart of ``repro/models/api.py``: the
+launcher, the training step and the serve steps only talk to this module.
 
 Every family is ported: dense, vlm and audio (``transformer``), moe
-(``moe``), ssm (``ssm``) and hybrid (``hybrid``). The losses come with the
-training slice of the port.
+(``moe``), ssm (``ssm``) and hybrid (``hybrid``).
 """
 from __future__ import annotations
 
@@ -48,3 +48,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype="bfloat16",
 
 def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
     return module_for(cfg).decode_step(params, cache, tokens, cache_index, cfg, pc)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE. logits (B,S,V) any float dtype (reduction in fp32);
+    labels (B,S) with -1 = ignore."""
+    valid = labels >= 0
+    safe = labels.clamp_min(0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, pc=None, *, remat: str = "none"):
+    """Returns (loss, metrics dict). batch needs 'labels' (B,S)."""
+    logits, aux = forward(params, batch, cfg, pc, remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce + cfg.router_aux_coef * aux if cfg.family == "moe" else ce
+    return loss, {"ce": ce, "aux": aux, "loss": loss}

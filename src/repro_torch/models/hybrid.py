@@ -52,15 +52,21 @@ params_from_reference = T.params_from_reference
 
 
 def forward(params, batch, cfg: ModelConfig, pc=None, *, remat: str = "none"):
-    """Train / prefill forward: logits (B, S, V)."""
-    T._check(pc, remat)
+    """Train / prefill forward: logits (B, S, V); each group's body (its
+    Mamba2 layers, then the shared block) under the ``remat`` policy, the
+    tail outside it, as in the reference."""
+    T._check(pc)
     x = L.embed(params["embed"], batch["tokens"], cfg, pc)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    n_groups, _, _ = _plan(cfg)
-    for gi in range(n_groups):
-        x = ssm.mamba_stack(T._layer(params["groups"], gi), x, cfg)
-        x, _ = T.block_apply(params["shared"], x, cfg, positions=positions)
+
+    def body(group, shared, x):
+        x = ssm.mamba_stack(group, x, cfg)
+        return T.block_apply(shared, x, cfg, positions=positions)[0]
+
+    body = T.remat_wrap(body, remat)
+    for group in T._layers(params["groups"]):
+        x = body(group, params["shared"], x)
     if "tail" in params:
         x = ssm.mamba_stack(params["tail"], x, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -91,10 +97,9 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
-    n_groups, _, _ = _plan(cfg)
-    for gi in range(n_groups):
+    for gi, group in enumerate(T._layers(params["groups"])):
         group_cache = {k: t[gi] for k, t in cache["groups_ssm"].items()}
-        x = ssm.mamba_stack(T._layer(params["groups"], gi), x, cfg, cache=group_cache)
+        x = ssm.mamba_stack(group, x, cfg, cache=group_cache)
         kv = {k: t[gi] for k, t in cache["attn"].items()}
         x, _ = T.block_apply(params["shared"], x, cfg, positions=positions, cache=kv,
                              cache_index=cache_index)

@@ -369,7 +369,7 @@ def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig, pc=None) -> torc
     ``ParallelCtx``) comes with the parallel slice: ``pc`` must be None."""
     if pc is not None:
         raise NotImplementedError("a sharded embedding (pc) comes with the port's "
-                                  "parallel slice (ROADMAP Queue 1, item 9)")
+                                  "parallel slice")
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embedding"][tokens].to(cdt)  # gather, then cast: the same values
     if cfg.embed_scale:

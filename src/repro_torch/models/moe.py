@@ -124,7 +124,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, pc=None):
     scheme = ep_scheme(cfg, pc)
     if scheme != "ref":
         raise NotImplementedError(f"the {scheme} expert scheme comes with the port's "
-                                  "parallel slice (ROADMAP Queue 1, item 9)")
+                                  "parallel slice")
     return _moe_ffn_local(x, params["router"], params["wg"], params["wu"], params["wo"],
                           cfg, 0, cfg.num_experts)
 
@@ -182,7 +182,8 @@ def block_apply(params, x, cfg: ModelConfig, pc=None, *, positions, cache=None,
     xin = L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps)
     ff, aux = moe_ffn(params["moe"], xin, cfg, pc)
     if cfg.num_shared_experts:
-        gate = torch.sigmoid(xin.float() @ params["moe"]["shared_gate"]).to(x.dtype)
+        # an fp32 product, as jax promotes a bf16 gate (cast_params_once) to fp32
+        gate = torch.sigmoid(xin.float() @ params["moe"]["shared_gate"].float()).to(x.dtype)
         ff = ff + gate * L.mlp_block(params["moe"]["shared"], xin, cfg)
     return x + ff, new_cache, aux
 
@@ -204,15 +205,21 @@ params_from_reference = T.params_from_reference
 
 
 def forward(params, batch, cfg: ModelConfig, pc=None, *, remat: str = "none"):
-    """Returns (logits (B, S, V), aux loss averaged over the layers)."""
-    T._check(pc, remat)
+    """Returns (logits (B, S, V), aux loss averaged over the layers); each
+    layer's body under the ``remat`` policy."""
+    T._check(pc)
     x = L.embed(params["embed"], batch["tokens"], cfg, pc)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+    def body(lp, x):
+        y, _, layer_aux = block_apply(lp, x, cfg, pc, positions=positions)
+        return y, layer_aux
+
+    body = T.remat_wrap(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _, layer_aux = block_apply(T._layer(params["layers"], i), x, cfg, pc,
-                                      positions=positions)
+    for lp in T._layers(params["layers"]):
+        x, layer_aux = body(lp, x)
         aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), aux / cfg.num_layers
@@ -232,9 +239,9 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(T._layers(params["layers"])):
         layer_cache = {name: t[i] for name, t in cache.items()}
-        x, _, _ = block_apply(T._layer(params["layers"], i), x, cfg, pc, positions=positions,
-                              cache=layer_cache, cache_index=cache_index)
+        x, _, _ = block_apply(lp, x, cfg, pc, positions=positions, cache=layer_cache,
+                              cache_index=cache_index)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), cache

@@ -7,8 +7,7 @@ the card the ssd_scan kernel, on the CPU its plain version
 runs the one-token recurrence ``ssd_decode`` in torch, as the reference
 does. Layers are one L-leading stack, looped over in Python; the decode
 cache is a stacked (L-leading) dict updated in place. A ``ParallelCtx``
-(``pc``) or a ``remat`` other than ``"none"`` raises, as in
-``models.transformer``.
+(``pc``) raises, as in ``models.transformer``.
 """
 from __future__ import annotations
 
@@ -173,17 +172,22 @@ def mamba_mixer(
 
 
 def mamba_stack(stack: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None, remat: str = "none") -> torch.Tensor:
     """Every block of an L-leading stack in turn, each adding its mixer's
-    output to the residual. With a stacked cache (decode), each block's
-    slice of the cache is overwritten in place with its new state."""
-    for i in range(stack["wz"].shape[0]):
-        layer_cache = None if cache is None else {k: t[i] for k, t in cache.items()}
-        y, new = mamba_mixer(T._layer(stack, i), x, cfg, cache=layer_cache)
-        if cache is not None:
+    output to the residual, under the ``remat`` policy
+    (``transformer.remat_wrap``). With a stacked cache (decode), each
+    block's slice of the cache is overwritten in place with its new state."""
+
+    def block(lp, x, layer_cache):
+        y, new = mamba_mixer(lp, x, cfg, cache=layer_cache)
+        if layer_cache is not None:
             for k, t in new.items():
                 layer_cache[k].copy_(t)
-        x = x + y
+        return x + y
+
+    block = T.remat_wrap(block, remat)
+    for i, lp in enumerate(T._layers(stack)):
+        x = block(lp, x, None if cache is None else {k: t[i] for k, t in cache.items()})
     return x
 
 
@@ -209,10 +213,11 @@ params_from_reference = T.params_from_reference
 
 
 def forward(params, batch, cfg: ModelConfig, pc=None, *, remat: str = "none"):
-    """Train / prefill forward: logits (B, S, V)."""
-    T._check(pc, remat)
+    """Train / prefill forward: logits (B, S, V), each layer's body under
+    the ``remat`` policy."""
+    T._check(pc)
     x = L.embed(params["embed"], batch["tokens"], cfg, pc)
-    x = mamba_stack(params["layers"], x, cfg)
+    x = mamba_stack(params["layers"], x, cfg, remat=remat)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)
 

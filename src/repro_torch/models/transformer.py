@@ -3,19 +3,55 @@ families). Counterpart of ``repro/models/transformer.py``.
 
 Layers are stacked along a leading L dim, as in the reference (which scans
 over them); the port loops over the stack in Python, each layer's
-parameters being views into it. Remat (activation checkpointing) comes
-with the training slice: ``remat`` other than ``"none"`` raises.
+parameters being views into it (``_layers``). The remat policy is applied to
+each layer's body, as the reference applies it to the scanned body.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.common import dtype_of, fold_seed, tree_from_numpy, tree_map
+from repro_torch.common import dtype_of, fold_seed, tree_from_numpy, tree_leaves, tree_unflatten
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.serving import kvcache
+
+# ---------------------------------------------------------------------------
+# Remat policies
+# ---------------------------------------------------------------------------
+
+# the products the "dots" policy saves: matrix products with no batch
+# dimension (a (B, S, D) @ (D, F) product reaches aten as ``mm``), as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, remat: str):
+    """``fn`` under the remat policy: ``"full"`` keeps only its inputs and
+    recomputes the rest in the backward; ``"dots"`` also keeps the outputs of
+    its matrix products with no batch dimension; anything else is ``fn``
+    itself. The kernels launch through ``ctypes``, below what a policy sees,
+    so under either policy they launch again in the recompute, as the
+    reference's Pallas calls are recomputed."""
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    return fn
+
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -67,8 +103,14 @@ def params_from_reference(np_params: dict, device="cuda") -> dict:
     return tree_from_numpy(np_params, device)
 
 
-def _layer(stack: dict, i: int) -> dict:
-    return tree_map(lambda t: t[i], stack)
+def _layers(stack: dict) -> list[dict]:
+    """A stack of layers (every leaf leading with L) as one parameter dict
+    per layer, made of views by one ``torch.unbind`` per leaf. Its backward
+    stacks the L layers' gradients in one copy, where indexing layer by layer
+    would add a zero-filled copy of the whole stack for every layer."""
+    per_leaf = [torch.unbind(t) for t in tree_leaves(stack)]
+    return [tree_unflatten(stack, [views[i] for views in per_leaf])
+            for i in range(len(per_leaf[0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -114,13 +156,9 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig, pc=None) -> torch
     return L.embed(params["embed"], batch["tokens"], cfg, pc)
 
 
-def _check(pc, remat: str = "none") -> None:
+def _check(pc) -> None:
     if pc is not None:
-        raise NotImplementedError("a ParallelCtx (pc) comes with the port's parallel "
-                                  "slice (ROADMAP Queue 1, item 9)")
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} comes with the port's training "
-                                  "slice (ROADMAP Queue 1, item 8)")
+        raise NotImplementedError("a ParallelCtx (pc) comes with the port's parallel slice")
 
 
 def forward(
@@ -136,16 +174,20 @@ def forward(
     """Train / prefill forward. Returns logits (B, S, V); with return_cache also
     returns a stacked (L-leading) KV cache holding the prefilled keys/values,
     each (L, B, KV, S, hd)."""
-    _check(pc, remat)
+    _check(pc)
     x = _embed_inputs(params, batch, cfg, pc)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     cdt = dtype_of(cfg.compute_dtype)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def body(lp, x):
+        return block_apply(lp, x, cfg, positions=positions)[0]
+
+    body = remat_wrap(body, remat)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        y, _ = block_apply(lp, x, cfg, positions=positions)
+    for lp in _layers(params["layers"]):
+        y = body(lp, x)
         if return_cache:
             # re-project k/v for the cache, as the reference does
             xin = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps).to(cdt)
@@ -187,10 +229,10 @@ def decode_step(
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(_layers(params["layers"])):
         layer_cache = {name: t[i] for name, t in cache.items()}
-        x, _ = block_apply(_layer(params["layers"], i), x, cfg, positions=positions,
-                           cache=layer_cache, cache_index=cache_index)
+        x, _ = block_apply(lp, x, cfg, positions=positions, cache=layer_cache,
+                           cache_index=cache_index)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, cache

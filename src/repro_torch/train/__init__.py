@@ -1,3 +1,2 @@
-"""Step factories of the port (serving so far). Counterpart of
-``repro/train``; the optimizers, training steps and checkpointing come
-with the training slice."""
+"""Training substrate of the port: optimizers, step factories, checkpointing,
+fault tolerance. Counterpart of ``repro/train``."""

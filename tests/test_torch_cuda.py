@@ -2,7 +2,10 @@
 ibn_pointwise, flash_attention, ssd_scan and gmm, forward and backward, and
 the prefills of the dense transformer (flash_attention), the
 Mamba2 LM (ssd_scan), the MoE transformer (gmm) and the hybrid
-(flash_attention and ssd_scan) against the port's CPU forward, and the
+(flash_attention and ssd_scan) against the port's CPU forward, their
+training steps (loss, gradients, an AdamW update, each kernel's launches
+per step under remat "none" and "full", and planted faults the gradient
+limit must see) against the port's CPU step, and the
 oneshot supernet (ibn_pointwise) and the learned cost model against the
 port's CPU run. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
@@ -11,6 +14,8 @@ machine with the card and PyTorch alone:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,7 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.common import tree_leaves, tree_map  # noqa: E402
-from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.config import ModelConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.core import costmodel, has, oneshot  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
@@ -29,6 +34,11 @@ from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
+from repro_torch.data.synthetic import LMStream  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its phases run only under __main__)
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SHAPES = [
@@ -571,7 +581,8 @@ def _grads(fn, inputs, cotangent):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("e,c,d,f", [(4, 64, 32, 48), (3, 129, 33, 257), (4, 688, 2048, 1408)])
+@pytest.mark.parametrize("e,c,d,f", [(4, 64, 32, 48), (3, 129, 33, 257), (4, 688, 2048, 1408),
+                                     (4, 688, 1408, 2048)])
 def test_gmm_backward_matches_plain_version_on_card(e, c, d, f, dtype):
     _need_sm90()
     rng = np.random.default_rng(12)
@@ -743,3 +754,102 @@ def test_costmodel_forward_and_steps_on_card_match_cpu(monkeypatch):
         assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
     for key, w in m_cpu.items():
         assert m_card[key] == pytest.approx(w, rel=1e-4), key
+
+
+# the training step on the card (chip_smoke's train phase at small sizes):
+# fp32 card against CPU, the launches of each kernel per step, and the
+# planted faults
+
+TRAIN_TOL = chip_smoke.TRAIN_TOL
+
+
+def _train_cfg(family):
+    """A small config of each family with every kernel on its path, fp32."""
+    if family in ("ssm", "moe"):
+        return _family_cfg(family)
+    common = dict(name=f"t-{family}", d_model=128, vocab_size=1000, compute_dtype="float32",
+                  num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, attn_impl="flash_pallas")
+    if family == "dense":
+        return ModelConfig(family="dense", num_layers=3, **common)
+    return ModelConfig(family="hybrid", num_layers=5, hybrid_attn_every=2, ssm_state=64,
+                       ssm_head_dim=32, ssm_chunk=32, **common)
+
+
+def _train_launches(cfg, remat: str) -> dict:
+    """Each kernel's launches in one training step: forward (again in the
+    recompute under remat) and, for gmm, dx and dw in the backward."""
+    r, n = (1 if remat == "none" else 2), cfg.num_layers
+    if cfg.family == "moe":
+        return {"gmm": (3 * r + 6) * n, "flash_attention": r * n}
+    if cfg.family == "ssm":
+        return {"ssd_scan": r * n}
+    if cfg.family == "hybrid":  # the tail's Mamba2 layers are outside the remat
+        groups = n // cfg.hybrid_attn_every
+        per = cfg.hybrid_attn_every
+        return {"ssd_scan": r * groups * per + n - groups * per, "flash_attention": r * groups}
+    return {"flash_attention": r * n}
+
+
+def _train_inputs(cfg, remat="none"):
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 77, 2, "train"),
+                    train=TrainConfig(warmup_steps=5, learning_rate=1e-3, remat=remat))
+    host = LMStream(cfg.vocab_size, 77, 2, seed=0).batch_at(0)
+    return run, {k: torch.from_numpy(v) for k, v in host.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "ssm", "moe", "hybrid"])
+def test_train_step_on_card_matches_cpu(family):
+    """Loss (relative), each leaf's gradient (over that leaf's max
+    |gradient|) and one AdamW update from the card's gradients (over each
+    leaf's max |update|, beyond one rounding step of the new parameter),
+    card against CPU, fp32, at chip_smoke's limit."""
+    _need_sm90()
+    cfg = _train_cfg(family)
+    run, batch = _train_inputs(cfg)
+    params = api.init(0, cfg, device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    loss, _, grads = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)
+    want_loss, _, want = steps.value_and_grad(cpu_params, batch, run)
+    assert abs(loss.item() - want_loss.item()) <= TRAIN_TOL * abs(want_loss.item())
+    assert max(chip_smoke._grad_errs(grads, want)) <= TRAIN_TOL
+    want_new = chip_smoke._stepped(cpu_params, tree_map(lambda t: t.cpu(), grads), run)
+    got = chip_smoke._stepped(params, grads, run)
+    assert all(t.device.type == "cuda" for t in tree_leaves(got))
+    assert max(chip_smoke._update_errs(got, want_new, cpu_params)) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("family", ["dense", "ssm", "moe", "hybrid"])
+def test_train_step_launches_each_kernel_exactly(family, remat):
+    _need_sm90()
+    cfg = _train_cfg(family)
+    run, batch = _train_inputs(cfg, remat)
+    step = steps.make_train_step(run)[0]
+    params = api.init(0, cfg, device="cuda")
+    state = {"params": params, "opt": chip_smoke.make_optimizer(run.train).init(params)}
+    before = chip_smoke.launch_counts()
+    state, metrics = step(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items() if v != before[k]}
+    assert launches == _train_launches(cfg, remat)
+    assert torch.isfinite(metrics["loss"]) and int(state["opt"]["step"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,family", [("gmm_dw_dropped", "moe"),
+                                          ("ssd_scan_dB_zeroed", "ssm")])
+def test_train_gradient_check_fails_a_planted_fault(fault, family):
+    """One product's dw dropped from gmm's backward, or the B gradient of
+    the scan's backward zeroed, on the card: the gradient limit must fail."""
+    _need_sm90()
+    cfg = _train_cfg(family)
+    run, batch = _train_inputs(cfg)
+    params = api.init(0, cfg, device="cuda")
+    want = steps.value_and_grad(tree_map(lambda t: t.cpu(), params), batch, run)[2]
+    with chip_smoke._train_fault(fault):
+        got = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)[2]
+    assert max(chip_smoke._grad_errs(got, want)) > TRAIN_TOL
+    clean = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)[2]
+    assert max(chip_smoke._grad_errs(clean, want)) <= TRAIN_TOL  # the fault is gone

@@ -251,10 +251,11 @@ def test_init_shapes_and_statistics(name):
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
 def test_later_families_raise(family):
-    """The moe, ssm and hybrid families are served now (their parity tests
-    are tests/test_torch_{moe,ssm,hybrid}.py); what they still raise, as the
-    dense family does, is a sharded (pc) or remat forward, which come with
-    the parallel and training slices."""
+    """The moe, ssm and hybrid families are served and trained now (their
+    parity tests are tests/test_torch_{moe,ssm,hybrid,train}.py); what they
+    still raise, as the dense family does, is a sharded (pc) forward, which
+    comes with the parallel slice. A remat forward gives the plain one's
+    logits."""
     arch = {"moe": "qwen2_moe_a2_7b", "ssm": "mamba2_370m", "hybrid": "zamba2_7b"}[family]
     cfg = port_configs.smoke(arch)
     params = api.init(0, cfg, device="cpu")
@@ -263,16 +264,16 @@ def test_later_families_raise(family):
     assert logits.shape == (1, 4, cfg.vocab_size) and aux.shape == ()
     with pytest.raises(NotImplementedError, match="parallel slice"):
         api.forward(params, batch, cfg, pc=object())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        api.forward(params, batch, cfg, remat="full")
+    assert torch.equal(api.forward(params, batch, cfg, remat="full")[0], logits)
 
 
 def test_sharded_and_remat_paths_raise():
     cfg = _port(CFGS["dense"])
     params = TT.params_from_reference(_params("dense"), "cpu")
     batch = {"tokens": torch.from_numpy(_tokens("dense", 4))}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TT.forward(params, batch, cfg, remat="full")
+    for remat in ("full", "dots"):  # remat runs since the training slice
+        assert torch.equal(TT.forward(params, batch, cfg, remat=remat),
+                           TT.forward(params, batch, cfg))
     with pytest.raises(NotImplementedError, match="parallel slice"):
         TT.forward(params, batch, cfg, pc=object())
     with pytest.raises(NotImplementedError, match="parallel slice"):

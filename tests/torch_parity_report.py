@@ -25,6 +25,7 @@ import test_torch_moe as tm  # noqa: E402
 import test_torch_oneshot as to  # noqa: E402
 import test_torch_search as ts  # noqa: E402
 import test_torch_ssm as tss  # noqa: E402
+import test_torch_train as ttr  # noqa: E402
 import test_torch_transformer as tt  # noqa: E402
 
 
@@ -456,10 +457,54 @@ def oneshot_rows():
              "test_sgd_step_matches_reference", to.GRAD_TOL, grads)]
 
 
+def train_rows():
+    rng = np.random.default_rng(2)
+    logits = (3 * rng.normal(size=(3, 7, 41))).astype(np.float32)
+    labels = rng.integers(-1, 41, size=(3, 7)).astype(np.int32)
+    ce = {}
+    for dtype in ("float32", "bfloat16"):
+        want = float(ttr.rapi.cross_entropy(jnp.asarray(logits, dtype), jnp.asarray(labels)))
+        got = ttr.tapi.cross_entropy(torch.from_numpy(logits).to(getattr(torch, dtype)),
+                                     torch.from_numpy(labels)).item()
+        ce[dtype] = abs(got - want) / abs(want)
+    opt = [max(ttr.optimizer_errs(name)[0].values())
+           for name in ("adamw", "adafactor", "rmsprop", "sgd")]
+    rows = [("api.cross_entropy with ignored labels, fp32 / bf16 logits, relative",
+             "test_cross_entropy_matches_reference", ttr.CE_TOL, max(ce.values())),
+            ("adamw / adafactor (a (2, 128, 256) stacked leaf) / rmsprop / sgd, params and "
+             "every state leaf after 3 steps on the same gradients, per leaf / max(1, max): "
+             + " / ".join(f"{e:.3g}" for e in opt),
+             "test_optimizer_matches_reference_after_three_steps", ttr.OPT_TOL, max(opt))]
+    remat = max(max(ttr.remat_errs(f, r)[1].values())
+                for f in ("dense", "ssm", "moe", "hybrid") for r in ("full", "dots"))
+    rows.append(("remat full / dots against none, dense / ssm / moe / hybrid: gradients per "
+                 "leaf / that leaf's max", "test_remat_gives_the_gradients_of_none",
+                 ttr.REMAT_TOL, remat))
+    for variant, (_, _, tol, leaf_tol) in ttr.VARIANTS.items():
+        errs = {f: ttr.train_step_errs(f, v) for f, v in ttr.CASES if v == variant}
+        loss = max(max(e["loss"]) for e in errs.values())
+        grads = max(e["grads"] for e in errs.values())
+        moments = max(max(e["mu"], e["nu"]) for e in errs.values())
+        fams = "/".join(errs)
+        rows.append((f"make_train_step, 3 AdamW steps, {variant}, {fams}: loss, relative",
+                     "test_train_step_matches_reference", tol, loss))
+        rows.append((f"the same, {variant}: the first step's gradients per leaf / that "
+                     "leaf's max", "test_train_step_matches_reference", leaf_tol, grads))
+        rows.append((f"the same, {variant}: mu and nu after 3 steps per leaf / that leaf's max",
+                     "test_train_step_matches_reference", leaf_tol, moments))
+        if variant == "cast_bf16":
+            rows.append(("the same, cast_bf16, planted fault (the clip lost on the bf16 "
+                         "gradients), its smallest reading: must exceed the limit",
+                         "test_train_step_matches_reference", leaf_tol,
+                         min(e["control"] for e in errs.values())))
+    return rows
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
             + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
-            + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows())
+            + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows()
+            + train_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
