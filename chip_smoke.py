@@ -112,10 +112,26 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                leaf, one AdamW update) with two planted faults the
                gradient limit must fail; the loop resumed after an injected
                failure from a bitwise checkpoint;
-16. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+16. mesh     — the pod mesh search (``core.meshsearch.search_mesh``) for
+               qwen3-1.7B, mamba2-370m and qwen2-moe-a2.7b at train_4k on
+               256 chips, 400 samples, seed 0, with its PPO updates on the
+               card, then the same search on the CPU: the sampled configs
+               (in order), every record (bitwise) and the best config must be
+               the same and the final PPO logits within 1e-5; wall s per
+               search, ms per sample, the PPO update's mean ms on the card
+               (CUDA events over its 25 updates), the engine's cache hit rate
+               and the best config; then the full LLM scenario grid
+               (``core.scenarios.grid``: 324 scenarios, distinct feature
+               vectors, every target in [0.2, 2.0] ms) and its wall s. The
+               serve phases hold ``launch.roofline.count_params`` (a
+               shape-only init) against the full-width weights' element
+               count, and the train phase counts its model FLOPs with
+               ``launch.roofline.model_flops``;
+17. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Each main path (search and oneshot for ibn_pointwise; serve, serve_ssm,
-serve_moe and train for flash_attention, ssd_scan and gmm) runs with every
+serve_moe and train for flash_attention, ssd_scan and gmm; mesh, which
+must launch none of them) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
@@ -142,9 +158,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.common import tree_leaves, tree_map, tree_size  # noqa: E402
+from repro_torch.config import SHAPES as LLM_SHAPES  # noqa: E402
 from repro_torch.config import RunConfig, ShapeConfig, TrainConfig  # noqa: E402
-from repro_torch.core import costmodel, has, nas, oneshot, scenarios, simulator  # noqa: E402
+from repro_torch.core import (costmodel, has, meshsearch, nas, oneshot, scenarios,  # noqa: E402
+                              simulator)
 from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
@@ -154,6 +172,7 @@ from repro_torch.kernels import flash_attention, gmm, ibn_conv, ssd_scan  # noqa
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
@@ -264,6 +283,12 @@ MOE_CHECK_LEN = 256
 K1_SYMBOL = "ibn_pw"
 KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
            "ssd_scan": ssd_scan, "gmm": gmm}
+# the mesh phase: one dense, the ssm and one moe config, as the reference's
+# mesh search prices them
+MESH_ARCHS = ("qwen3_1_7b", "mamba2_370m", "qwen2_moe_a2_7b")
+MESH_SHAPE, MESH_CHIPS, MESH_SAMPLES = "train_4k", 256, 400
+MESH_LOGIT_TOL = 1e-5
+GRID_SIZE = 324
 
 
 def reset_counts() -> None:
@@ -1229,6 +1254,26 @@ def _profiled(fn) -> dict:
     return _device_times(prof, 1)
 
 
+def held_param_count(label: str, cfg, params, card: str) -> int:
+    """The materialised tree's element count, held against
+    ``launch.roofline.count_params`` (a shape-only init on the meta
+    device); for the moe family also its expert stacks' count."""
+    n = tree_size(params)
+    counts = roofline.count_params(cfg)
+    if counts["total"] != n:
+        raise AssertionError(f"{label}: count_params total {counts['total']}, weights {n}")
+    note = ""
+    if cfg.family == "moe":
+        expert = sum(params["layers"]["moe"][k].numel() for k in ("wg", "wu", "wo"))
+        if counts["expert"] != expert:
+            raise AssertionError(f"{label}: count_params expert {counts['expert']}, "
+                                 f"wg/wu/wo {expert}")
+        note = f", experts {expert} = the wg/wu/wo stacks'"
+    print(f"{label}: count_params({cfg.name}) total {counts['total']} = the full-width weights' "
+          f"element count{note}  [{card}]")
+    return n
+
+
 def serve_phase(card: str) -> dict:
     run = configs.make_run(SERVE_ARCH, "decode_32k", model_attn_impl="flash_pallas")
     cfg = run.model
@@ -1238,7 +1283,7 @@ def serve_phase(card: str) -> dict:
     params = api.init(0, cfg, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = held_param_count("serve", cfg, params, card)
     rng = np.random.default_rng(2)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
     prefill(params, {"tokens": prompt})  # warm-up: cuBLAS plans, the kernel's first launch
@@ -1721,7 +1766,7 @@ def serve_ssm_phase(card: str) -> dict:
     params = api.init(0, cfg, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = held_param_count("serve_ssm", cfg, params, card)
     rng = np.random.default_rng(6)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
     prefill(params, {"tokens": prompt})  # warm-up
@@ -1885,7 +1930,7 @@ def serve_moe_phase(card: str) -> dict:
     params = api.init(0, cfg, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = held_param_count("serve_moe", cfg, params, card)
     rng = np.random.default_rng(7)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT))).to(DEV)
     prefill(params, {"tokens": prompt})  # warm-up
@@ -2114,25 +2159,6 @@ def _train_run(cfg, batch: int, seq: int, **train) -> RunConfig:
                                        learning_rate=1e-3, **train))
 
 
-def train_flops(cfg, params, tokens: int, seq: int) -> float:
-    """Model FLOPs of one training step, by src/repro/launch/roofline.py's
-    ``model_flops`` for a train shape, with N counted from the port's own
-    parameter tree: 6·N·tokens, N the matmul parameters (the embedding
-    lookup left out unless tied, experts scaled by top-k / E), plus
-    3·4·(S/2)·H·hd per token per attention layer."""
-    n = sum(t.numel() for t in tree_leaves(params))
-    if not cfg.tie_embeddings:
-        n -= cfg.vocab_size * cfg.d_model
-    if cfg.family == "moe":
-        expert = sum(params["layers"]["moe"][k].numel() for k in ("wg", "wu", "wo"))
-        n = n - expert + expert * cfg.num_experts_per_tok / cfg.num_experts
-    n_attn = {"dense": cfg.num_layers, "vlm": cfg.num_layers, "audio": cfg.num_layers,
-              "moe": cfg.num_layers,
-              "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1)}.get(cfg.family, 0)
-    att = 4.0 * (seq / 2) * cfg.num_heads * cfg.resolved_head_dim * n_attn
-    return 6.0 * n * tokens + 3.0 * att * tokens
-
-
 class _RawProfile(torch.autograd.profiler.profile):
     """torch's profiler (CPU and CUDA activity) that keeps kineto's raw
     events and skips building its Python event tree: that takes over a
@@ -2225,7 +2251,7 @@ def _train_model(card: str, label: str, cfg, remat: str, expect: dict,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    flops = train_flops(cfg, params, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    flops = roofline.model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
     del params
     stream = LMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     batches = [{k: torch.from_numpy(v).to(DEV) for k, v in stream.batch_at(i).items()}
@@ -2551,6 +2577,126 @@ def train_phase(card: str) -> dict:
             "check": check, "loop": loop, "part_s": part_s}
 
 
+@contextlib.contextmanager
+def _recorded_mesh_search():
+    """``meshsearch``'s controller and engine swapped for subclasses that
+    keep their instances; the controller's updates on the card are timed
+    with CUDA events around each call."""
+    made = {"ctrl": [], "engine": []}
+
+    class Ctrl(meshsearch.PPOController):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.update_events = []
+            made["ctrl"].append(self)
+
+        def update(self, vecs, rewards):
+            if self.device.type != "cuda":
+                return super().update(vecs, rewards)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            super().update(vecs, rewards)
+            end.record()
+            self.update_events.append((start, end))
+
+    class Engine(meshsearch.CallableEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made["engine"].append(self)
+
+    saved = meshsearch.PPOController, meshsearch.CallableEngine
+    meshsearch.PPOController, meshsearch.CallableEngine = Ctrl, Engine
+    try:
+        yield made
+    finally:
+        meshsearch.PPOController, meshsearch.CallableEngine = saved
+
+
+def _mesh_search(cfg, device: str) -> dict:
+    with _recorded_mesh_search() as made:
+        t0 = time.perf_counter()
+        res = meshsearch.search_mesh(cfg, LLM_SHAPES[MESH_SHAPE], samples=MESH_SAMPLES,
+                                     chips=MESH_CHIPS, seed=0, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    (ctrl,), (engine,) = made["ctrl"], made["engine"]
+    if ctrl.device.type != device:
+        raise AssertionError(f"mesh: the controller ran on {ctrl.device}, not {device}")
+    update_ms = [a.elapsed_time(b) for a, b in ctrl.update_events]
+    return {"result": res, "wall_s": wall_s, "logits": ctrl.logits.detach().cpu(),
+            "update_ms": update_ms, "stats": engine.stats}
+
+
+def mesh_phase(card: str) -> dict:
+    """The pod mesh search with its PPO updates on the card against the same
+    search on the CPU (MESH_*), then the full LLM scenario grid."""
+    out = {}
+    # the mesh path: counts at 0 just before, read just after (it launches
+    # none of the port's kernels: its only device work is the PPO update)
+    reset_counts()
+    for arch in MESH_ARCHS:
+        cfg = configs.get(arch)
+        card_run = _mesh_search(cfg, "cuda")
+        cpu_run = _mesh_search(cfg, "cpu")
+        got, want = card_run["result"], cpu_run["result"]
+        cfgs_card = [h["config"] for h in got.history]
+        cfgs_cpu = [h["config"] for h in want.history]
+        mismatched = sum(a != b for a, b in zip(cfgs_card, cfgs_cpu))
+        if len(got.history) != MESH_SAMPLES or cfgs_card != cfgs_cpu:
+            raise AssertionError(f"mesh {arch}: {mismatched} of {MESH_SAMPLES} sampled configs "
+                                 f"differ between the card's search and the CPU's")
+        if repr(got.history) != repr(want.history):
+            raise AssertionError(f"mesh {arch}: the records differ between card and CPU")
+        if got.best_cfg != want.best_cfg or repr(got.best) != repr(want.best):
+            raise AssertionError(f"mesh {arch}: best {got.best_cfg} on the card, "
+                                 f"{want.best_cfg} on the CPU")
+        logit_err = (card_run["logits"] - cpu_run["logits"]).abs().max().item()
+        if not logit_err <= MESH_LOGIT_TOL:
+            raise AssertionError(f"mesh {arch}: final PPO logits card vs CPU {logit_err}")
+        n_updates = -(-MESH_SAMPLES // 16)
+        if len(card_run["update_ms"]) != n_updates:
+            raise AssertionError(f"mesh {arch}: {len(card_run['update_ms'])} PPO updates timed, "
+                                 f"not {n_updates}")
+        st = card_run["stats"]
+        hit_rate = st.cache_hits / st.requested
+        update_ms = float(np.mean(card_run["update_ms"]))
+        out[arch] = {"card_wall_s": card_run["wall_s"], "cpu_wall_s": cpu_run["wall_s"],
+                     "ms_per_sample": card_run["wall_s"] * 1e3 / MESH_SAMPLES,
+                     "cpu_ms_per_sample": cpu_run["wall_s"] * 1e3 / MESH_SAMPLES,
+                     "ppo_update_ms": card_run["update_ms"], "ppo_update_mean_ms": update_ms,
+                     "cache_hit_rate": hit_rate, "evaluated": st.evaluated,
+                     "best_cfg": got.best_cfg, "best_step_s": got.best["step_s"],
+                     "logit_err": logit_err, "mismatched_configs": mismatched}
+        print(f"mesh: {arch} {MESH_SHAPE} on {MESH_CHIPS} chips, {MESH_SAMPLES} samples: card "
+              f"{card_run['wall_s']:.3f} s ({out[arch]['ms_per_sample']:.3f} ms per sample), CPU "
+              f"{cpu_run['wall_s']:.3f} s; PPO update on the card {update_ms:.3f} ms mean over "
+              f"{n_updates} (CUDA events); engine cache hit rate {hit_rate:.1%} "
+              f"({st.evaluated} evaluated); configs and records card = CPU, "
+              f"logits {logit_err:.2e} apart (limit {MESH_LOGIT_TOL})  [{card}]")
+        print(f"mesh:   best {got.best_cfg} step_s {got.best['step_s']!r}")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"mesh: the mesh search launched {launches}")
+
+    t0 = time.perf_counter()
+    grid = scenarios.grid()
+    grid_s = time.perf_counter() - t0
+    feats = np.stack([scenarios.features(sc) for sc in grid])
+    lo, hi = scenarios.GRID_LATENCY_CLIP_MS
+    if len(grid) != GRID_SIZE or len({row.tobytes() for row in feats}) != GRID_SIZE:
+        raise AssertionError(f"mesh: grid of {len(grid)} scenarios, "
+                             f"{len({row.tobytes() for row in feats})} distinct feature vectors")
+    bad = [sc.name for sc in grid if not lo <= sc.latency_target_ms <= hi]
+    if bad:
+        raise AssertionError(f"mesh: grid targets outside [{lo}, {hi}] ms: {bad[:5]}")
+    print(f"mesh: scenarios.grid() {len(grid)} scenarios in {grid_s:.3f} s (host), "
+          f"{GRID_SIZE} distinct feature vectors, targets in [{lo}, {hi}] ms  [{card}]")
+    out["grid"] = {"count": len(grid), "wall_s": grid_s}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -2601,6 +2747,7 @@ def main() -> int:
     llm = timed("llm", llm_phase)
     torch.cuda.empty_cache()
     train = timed("train", train_phase)
+    mesh = timed("mesh", mesh_phase)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
@@ -2707,7 +2854,7 @@ def main() -> int:
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,
-             "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
+             "mesh": mesh, "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

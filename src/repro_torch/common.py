@@ -29,16 +29,27 @@ def dtype_of(name: str | torch.dtype) -> torch.dtype:
     return name
 
 
-def fold_seed(seed: int, *names: str, device="cpu") -> torch.Generator:
+def fold_seed(seed: int, *names: str, device="cpu") -> torch.Generator | None:
     """A ``torch.Generator`` on ``device`` seeded from ``seed`` and string
     names (stable across runs and processes). The counterpart of
     ``repro.common.fold_rng``; it does not reproduce ``jax.random``'s
-    streams, so the port's inits match the reference only in distribution."""
+    streams, so the port's inits match the reference only in distribution.
+
+    On the ``meta`` device (a shape-only init: ``train.steps.abstract_params``)
+    there is nothing to draw, and torch has no meta generator: it returns
+    ``None``."""
+    if torch.device(device).type == "meta":
+        return None
     h = hashlib.sha256(str(int(seed)).encode())
     for name in names:
         h.update(b"/" + name.encode())
     return torch.Generator(device=device).manual_seed(
         int.from_bytes(h.digest()[:8], "little") >> 1)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of elements across all leaves."""
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def tree_leaves(tree: PyTree) -> list:

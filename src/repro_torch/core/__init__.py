@@ -6,6 +6,7 @@ EvaluationEngine, simulator the analytic hardware model, proxy the accuracy
 signals (TrainedAccuracy trains on the card), costmodel the learned
 latency/area/energy MLP (Sec. 3.5.2), oneshot the weight-sharing supernet
 search, reward the Eq. 4-6 objective, scenarios/pareto the use-case
-registry and frontier, and search/session the drivers. Mirrors
-``repro.core`` apart from the mesh search and the sweep.
+registry (with the LLM scenario grid) and frontier, search/session the
+drivers, and meshsearch the pod mesh search over the roofline backend.
+Mirrors ``repro.core`` apart from the sweep.
 """

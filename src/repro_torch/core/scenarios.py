@@ -10,14 +10,34 @@ constraint mode (hard p=0,q=-1 / soft p=q=-0.07, Eq. 4-6).
 ``expand`` resolves any mix of ``Scenario`` objects, scenario names and
 preset names into a scenario list; ``register`` adds user-defined scenarios.
 
-Counterpart of ``repro/core/scenarios.py``: ``Scenario``, the registry,
-``expand`` and the paper's presets are copies. The LLM scenario grid
-(``grid``) and the transfer embedding (``features``) are not ported yet.
+Production-scale sweeps add two more pieces on top of the hand-written
+presets:
+
+* ``grid()`` — a combinatorial expander producting {LLM model config,
+  train vs serve, sequence length, SKU envelope, traffic tier} into hundreds
+  of registered scenarios. Each combo's latency target is derived by routing
+  the workload through the pod roofline
+  (``repro_torch.hw.roofline.PodRooflineBackend``) — a bigger model / longer
+  sequence / smaller pod gets a proportionally looser target — then
+  normalized into the edge simulator's latency regime. The workload axes
+  land in ``Scenario.workload`` as plain numbers.
+* ``features(scenario)`` — a fixed-length numeric embedding of the
+  objective, constraint envelope, SKU bounds and workload axes, a pure
+  function of the scenario's own fields; the scenario-transfer scheduler
+  clusters and matches donors in this space.
+
+Counterpart of ``repro/core/scenarios.py``, of which every piece is a copy:
+the grid's scenarios and their feature vectors are equal to the
+reference's.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Iterable, Mapping, Optional, Sequence, Union
+
+import numpy as np
 
 from repro_torch.core import simulator
 from repro_torch.core.reward import RewardConfig, meets_constraints, reward_record
@@ -219,6 +239,197 @@ register(
         tags=("energy", "soft"),
     )
 )
+
+
+# ---------------------------------------------------------------------------
+# feature embedding (scenario-transfer search)
+# ---------------------------------------------------------------------------
+
+#: workload keys folded into the embedding (missing keys read as 0.0, so
+#: hand-written scenarios without a workload embed on the target axes alone)
+WORKLOAD_FEATURE_KEYS = ("params_b", "train", "seq_len", "chips", "tier")
+
+#: the embedding's axes, in order (features()[i] is FEATURE_NAMES[i])
+FEATURE_NAMES = (
+    "has_latency",
+    "log_latency",
+    "has_energy",
+    "log_energy",
+    "log_area_frac",
+    "soft",
+    "wl_log_params",
+    "wl_train",
+    "wl_log_seq",
+    "wl_log_chips",
+    "wl_tier",
+)
+
+
+def features(scenario: Scenario) -> np.ndarray:
+    """Fixed-length numeric embedding of a scenario (module doc).
+
+    Every axis is kept O(1) (log-scaled targets, normalized workload axes)
+    so no single axis dominates Euclidean distances; the vector is a pure
+    function of the scenario's own fields — registration order, dict
+    insertion order and the surrounding registry never enter.
+    """
+    wl = scenario.workload_dict()
+    lat = scenario.latency_target_ms
+    energy = scenario.energy_target_mj
+    params_b = float(wl.get("params_b", 0.0))
+    seq = float(wl.get("seq_len", 0.0))
+    chips = float(wl.get("chips", 0.0))
+    vec = (
+        0.0 if lat is None else 1.0,
+        0.0 if lat is None else math.log10(max(lat, 1e-6)),
+        0.0 if energy is None else 1.0,
+        0.0 if energy is None else math.log10(max(energy, 1e-6)),
+        math.log10(max(scenario.area_target_mm2 / BASELINE_AREA_MM2, 1e-6)),
+        1.0 if scenario.mode == "soft" else 0.0,
+        math.log10(1.0 + max(params_b, 0.0)),
+        float(wl.get("train", 0.0)),
+        0.0 if seq <= 0 else math.log10(seq / 4096.0),
+        0.0 if chips <= 0 else math.log10(chips / 64.0),
+        float(wl.get("tier", 0.0)) / 2.0,
+    )
+    return np.asarray(vec, dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# grid expander (production-scale scenario diversity)
+# ---------------------------------------------------------------------------
+
+#: default grid axes: LLM configs (repro_torch.configs), train vs serve, sequence
+#: length, SKU envelope (area fraction of the baseline accelerator + pod
+#: size), and traffic tier (how aggressively the roofline step time is
+#: tightened into a latency target)
+GRID_MODELS = (
+    "gemma_2b",
+    "qwen3_1_7b",
+    "granite_3_2b",
+    "mamba2_370m",
+    "mistral_nemo_12b",
+    "qwen2_moe_a2_7b",
+)
+GRID_MODES = ("train", "serve")
+GRID_SEQ_LENS = (4096, 16384, 32768)
+#: sku -> (area fraction of BASELINE_AREA_MM2, pod chips for the roofline)
+GRID_SKUS = {"nano": (1 / 3, 64), "small": (1 / 2, 128), "base": (1.0, 256)}
+#: tier -> (tier index, fraction of the roofline step time kept as target)
+GRID_TIERS = {"low": (0, 2.0), "mid": (1, 1.0), "high": (2, 0.5)}
+#: the edge simulator's realistic latency regime the roofline-derived
+#: targets are clipped into (the paper's Fig. 8 targets span 0.3-1.3 ms)
+GRID_LATENCY_CLIP_MS = (0.2, 2.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _pod_step_ms(model: str, mode: str, seq_len: int, chips: int) -> float:
+    """Reference pod step time (ms) for one workload combo, via
+    ``PodRooflineBackend`` on a fixed canonical mesh. Deterministic per
+    combo (never a function of the rest of the grid); imports are deferred
+    so the registry stays importable without torch. Tries a microbatch ladder
+    (deeper splits fit tighter HBM), then falls back to the compute-only
+    roofline term when no reference config fits."""
+    from repro_torch import configs
+    from repro_torch.config import ShapeConfig
+    from repro_torch.hw.roofline import PodRooflineBackend
+
+    cfg = configs.get(model)
+    global_batch = 256 if mode == "train" else 128
+    shape = ShapeConfig(
+        f"grid-{mode}-{seq_len}",
+        seq_len,
+        global_batch,
+        "train" if mode == "train" else "decode",
+    )
+    backend = PodRooflineBackend(cfg, shape, chips=chips)
+    mesh = (max(chips // 16, 1), min(chips, 16))
+    base = {
+        "mesh": mesh,
+        "remat": "full",
+        "fsdp": True,
+        "act_collective": "seqpar",
+        "grad_dtype": "bfloat16",
+    }
+    for k in (4, 8, 16, 32):
+        rec = backend.evaluate({**base, "microbatches": k})
+        if rec is not None:
+            return float(rec["latency_ms"])
+    # nothing fits the reference meshes: compute-bound lower bound
+    _total, active = backend._param_count()
+    mult = 8.0 if shape.mode == "train" else 2.0
+    tokens = shape.global_batch * shape.seq_len
+    eff_tokens = tokens if shape.mode != "decode" else shape.global_batch
+    step_s = mult * active * eff_tokens / chips / backend.chip.peak_bf16_flops
+    return float(step_s * 1e3)
+
+
+def grid(
+    models: Sequence[str] = GRID_MODELS,
+    modes: Sequence[str] = GRID_MODES,
+    seq_lens: Sequence[int] = GRID_SEQ_LENS,
+    skus: Optional[Mapping[str, tuple]] = None,
+    tiers: Optional[Mapping[str, tuple]] = None,
+    limit: Optional[int] = None,
+    register_scenarios: bool = True,
+) -> list[Scenario]:
+    """Product the grid axes into registered scenarios (module doc).
+
+    Deterministic: the combo order is the nested product order of the axis
+    arguments, names encode the combo, and each latency target depends only
+    on its own combo's roofline step time — so ``grid(limit=300)`` always
+    yields the same 300 scenarios. Re-running overwrites prior
+    registrations of the same names (idempotent)."""
+    skus = GRID_SKUS if skus is None else skus
+    tiers = GRID_TIERS if tiers is None else tiers
+    lo, hi = GRID_LATENCY_CLIP_MS
+    out: list[Scenario] = []
+    for model in models:
+        for mode in modes:
+            if mode not in ("train", "serve"):
+                raise ValueError(f"grid mode must be 'train' or 'serve', got {mode!r}")
+            for seq in seq_lens:
+                for sku, (area_frac, chips) in skus.items():
+                    step_ms = _pod_step_ms(model, mode, int(seq), int(chips))
+                    params_b = _model_params_b(model)
+                    for tier, (tier_idx, frac) in tiers.items():
+                        if limit is not None and len(out) >= limit:
+                            return out
+                        target = min(max(step_ms / 1e3 * frac, lo), hi)
+                        sc = Scenario(
+                            name=(
+                                f"grid-{model}-{mode}-s{int(seq) // 1024}k-"
+                                f"{sku}-{tier}"
+                            ),
+                            description=(
+                                f"{model} {mode} seq={seq} on {sku} SKU "
+                                f"({chips} chips), {tier} tier — roofline "
+                                f"step {step_ms:.0f} ms"
+                            ),
+                            latency_target_ms=round(target, 4),
+                            area_target_mm2=round(area_frac * BASELINE_AREA_MM2, 1),
+                            tags=("grid", model, mode, sku, tier),
+                            workload={
+                                "params_b": params_b,
+                                "train": 1.0 if mode == "train" else 0.0,
+                                "seq_len": float(seq),
+                                "chips": float(chips),
+                                "tier": float(tier_idx),
+                            },
+                        )
+                        if register_scenarios:
+                            register(sc, overwrite=True)
+                        out.append(sc)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _model_params_b(model: str) -> float:
+    """Total parameter count (billions) of a named LLM config."""
+    from repro_torch import configs
+    from repro_torch.launch.roofline import count_params
+
+    return float(count_params(configs.get(model))["total"] / 1e9)
 
 
 PRESETS: dict[str, tuple[str, ...]] = {

@@ -3,7 +3,10 @@
 One interface — ``estimate_batch(specs, hs, ...) -> HwMetrics`` — over the
 exact analytical simulator (``AnalyticBackend``), the learned MLP cost
 model (``LearnedBackend``), and the multi-fidelity cheap-filter-then-refine
-cascade (``CascadeBackend``).
+cascade (``CascadeBackend``). The pod-level roofline adapter
+(``repro_torch.hw.roofline.PodRooflineBackend``) lives in its own module,
+as the reference's does, to keep this package import-light for the core
+search stack.
 """
 from repro_torch.hw.analytic import ANALYTIC, AnalyticBackend
 from repro_torch.hw.backend import CostBackend, HwMetrics

@@ -23,6 +23,6 @@ record bytes or checkpoint payloads, so traced runs are bitwise-identical
 to untraced ones.
 """
 
-from repro_torch.obs import metrics, trace  # noqa: F401
+from repro_torch.obs import metrics, report, trace  # noqa: F401
 from repro_torch.obs.metrics import REGISTRY, MetricsRegistry, merge_stats, rate  # noqa: F401
 from repro_torch.obs.trace import span  # noqa: F401

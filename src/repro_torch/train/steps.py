@@ -1,7 +1,8 @@
 """Step factories for train / prefill / decode. Counterpart of
 ``repro/train/steps.py`` (``make_train_step``, ``make_prefill_step``,
-``make_decode_step``); the sharded (``pc``) variants, the shape-only
-``abstract_params`` and the ``input_specs`` come with later slices.
+``make_decode_step``) and the shape-only stand-ins (``input_specs``,
+``abstract_params``, ``abstract_cache``); the sharded (``pc``) variants
+come with the parallel slice.
 
 As in the reference, with ``pc=None`` each factory returns the step and
 ``None`` for every sharding spec. The serve steps run without autograd.
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import tree_cast, tree_leaves, tree_map, tree_unflatten
-from repro_torch.config import RunConfig
+from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import api
 from repro_torch.train.optim import make_optimizer
 
@@ -19,6 +20,46 @@ from repro_torch.train.optim import make_optimizer
 def _no_pc(pc) -> None:
     if pc is not None:
         raise NotImplementedError("sharded steps (pc) come with the port's parallel slice")
+
+
+# ---------------------------------------------------------------------------
+# Shape-only stand-ins (meta tensors: nothing is allocated or drawn)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors standing in for every model input of this cell, with the
+    reference's shapes and dtypes: float32 frames and patches, int32 tokens
+    and labels."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.mode == "decode":  # one new token against a seq_len cache
+        return {"tokens": spec((b, 1))}
+    if cfg.family == "audio":
+        out = {"frames": spec((b, s, cfg.frontend_dim), torch.float32)}
+    elif cfg.family == "vlm":
+        p = cfg.num_patches
+        out = {"patches": spec((b, p, cfg.frontend_dim), torch.float32),
+               "tokens": spec((b, s - p))}
+    else:
+        out = {"tokens": spec((b, s))}
+    if shape.mode == "train":
+        out["labels"] = spec((b, s))
+    return out
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as meta tensors: ``api.init`` on the meta device."""
+    return api.init(0, cfg, device="meta")
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig, kv_dtype: str):
+    """The decode cache as meta tensors: ``api.init_cache`` on the meta
+    device."""
+    return api.init_cache(cfg, shape.global_batch, shape.seq_len, kv_dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ training steps (loss, gradients, an AdamW update, each kernel's launches
 per step under remat "none" and "full", and planted faults the gradient
 limit must see) against the port's CPU step, and the
 oneshot supernet (ibn_pointwise) and the learned cost model against the
-port's CPU run. Every test here carries the ``cuda`` marker
+port's CPU run, and the pod mesh search with its PPO updates on the card
+against the same search on the CPU. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -23,8 +24,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.config import SHAPES as LLM_SHAPES  # noqa: E402
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
-from repro_torch.core import costmodel, has, oneshot  # noqa: E402
+from repro_torch.core import costmodel, has, meshsearch, oneshot  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import gmm as tgmm  # noqa: E402
@@ -853,3 +855,17 @@ def test_train_gradient_check_fails_a_planted_fault(fault, family):
     assert max(chip_smoke._grad_errs(got, want)) > TRAIN_TOL
     clean = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)[2]
     assert max(chip_smoke._grad_errs(clean, want)) <= TRAIN_TOL  # the fault is gone
+
+
+@pytest.mark.cuda
+def test_mesh_search_on_card_matches_cpu():
+    """The pod mesh search with its PPO updates on the card samples the
+    configs and scores the records of the same search on the CPU."""
+    _need_card()
+    from repro_torch import configs
+
+    cfg, shape = configs.get("qwen3_1_7b"), LLM_SHAPES["train_4k"]
+    card = meshsearch.search_mesh(cfg, shape, samples=32, seed=0, device="cuda")
+    cpu = meshsearch.search_mesh(cfg, shape, samples=32, seed=0, device="cpu")
+    assert repr(card.history) == repr(cpu.history)
+    assert card.best_cfg == cpu.best_cfg

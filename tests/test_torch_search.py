@@ -2,6 +2,8 @@
 (bitwise), the PPO / REINFORCE updates (within 1e-5 from one reference
 state), the evolution search (bitwise), and a CPU run of the joint search
 with real proxy training. Inputs come from numpy seeds."""
+import inspect
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,7 @@ from repro.core.space import concat  # noqa: E402
 from repro_torch.core import controllers as port_ctl  # noqa: E402
 from repro_torch.core import engine as port_engine  # noqa: E402
 from repro_torch.core import has as port_has  # noqa: E402
+from repro_torch.core import meshsearch as port_meshsearch  # noqa: E402
 from repro_torch.core import nas as port_nas  # noqa: E402
 from repro_torch.core import proxy as port_proxy  # noqa: E402
 from repro_torch.core import reward as port_reward  # noqa: E402
@@ -129,6 +132,8 @@ def test_joint_search_with_trained_accuracy_on_cpu():
 def test_entry_points_default_to_the_card():
     assert port_proxy.TrainedAccuracy().device == "cuda"
     assert port_search.SearchConfig().device == "cuda"
+    device = inspect.signature(port_meshsearch.search_mesh).parameters["device"]
+    assert device.default == "cuda"
 
 
 def test_runtime_arguments_raise_until_ported(tmp_path):

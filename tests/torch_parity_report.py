@@ -21,8 +21,11 @@ import test_torch_convnets as tc  # noqa: E402
 import test_torch_costmodel as tcm  # noqa: E402
 import test_torch_hybrid as th  # noqa: E402
 import test_torch_kernels as tk  # noqa: E402
+import test_torch_meshsearch as tms  # noqa: E402
 import test_torch_moe as tm  # noqa: E402
 import test_torch_oneshot as to  # noqa: E402
+import test_torch_roofline as tr  # noqa: E402
+import test_torch_scenarios as tsc  # noqa: E402
 import test_torch_search as ts  # noqa: E402
 import test_torch_ssm as tss  # noqa: E402
 import test_torch_train as ttr  # noqa: E402
@@ -500,11 +503,76 @@ def train_rows():
     return rows
 
 
+def pod_rows():
+    """The shape-only init, the pod roofline, the grid and the mesh search
+    (mismatches of the bitwise checks; the mesh search's logits)."""
+    leaves = counts = flops = 0
+    for arch in tr.configs.ARCHS:
+        got = tr.tree_paths(tr.steps.abstract_params(tr.configs.get(arch)))
+        want = tr.tree_paths(tr.ref_steps.abstract_params(tr.ref_configs.get(arch)))
+        leaves += len(got) != len(want)
+        leaves += sum((a, tr._sig(x)) != (b, tr._sig(y)) for (a, x), (b, y) in zip(got, want))
+        counts += tr.roofline.count_params(tr.configs.get(arch)) != tr._ref_counts(arch)
+        for name in tr.SHAPES:
+            flops += (np.float64(tr.roofline.model_flops(tr.configs.get(arch), tr.SHAPES[name]))
+                      .tobytes() != np.float64(tr.ref_roof.model_flops(
+                          tr.ref_configs.get(arch), tr.REF_SHAPES[name])).tobytes())
+    records = 0
+    space = tr.meshsearch.mesh_space(256)
+    hs = [space.to_dict(v) for v in np.ndindex(*space.arity)]
+    for arch in tr.MESH_CONFIGS:
+        for mode in tr.MODES:
+            port = tr.port_hw.PodRooflineBackend(tr.configs.get(arch), tr.SHAPES[mode])
+            ref = tr.ref_hw.PodRooflineBackend(tr.ref_configs.get(arch), tr.REF_SHAPES[mode])
+            n = ref._param_count()
+            ref._param_count = lambda n=n: n
+            records += sum(repr(port.evaluate(h)) != repr(ref.evaluate(h)) for h in hs)
+    grid_got, grid_want = tsc._port_grid(), tsc._ref_grid()
+    grid = sum(tsc._fields(a) != tsc._fields(b) for a, b in zip(grid_got, grid_want))
+    feats = max(float(np.max(np.abs(tsc.port.features(a) - tsc.ref.features(b))))
+                for a, b in zip(grid_got, grid_want))
+
+    made, saved = {}, {}
+    for side, module in (("ref", tms.ref_mesh), ("port", tms.meshsearch)):
+        saved[side] = module.PPOController
+
+        class Recorded(saved[side]):
+            def __init__(self, *args, _side=side, **kwargs):
+                super().__init__(*args, **kwargs)
+                made[_side] = self
+
+        module.PPOController = Recorded
+    try:
+        want = tms.ref_mesh.search_mesh(tms.ref_configs.get("mamba2-370m"),
+                                        tms.REF_SHAPES["train_4k"], samples=tms.SAMPLES, seed=0)
+        got = tms.meshsearch.search_mesh(tms.configs.get("mamba2-370m"), tms.SHAPES["train_4k"],
+                                         samples=tms.SAMPLES, seed=0, device="cpu")
+    finally:
+        tms.ref_mesh.PPOController = saved["ref"]
+        tms.meshsearch.PPOController = saved["port"]
+    cfgs = sum(g["config"] != w["config"] for g, w in zip(got.history, want.history))
+    recs = sum(repr(g) != repr(w) for g, w in zip(got.history, want.history))
+    logits = float(np.max(np.abs(made["port"].logits.numpy() - np.asarray(made["ref"].logits))))
+    return [("abstract_params leaves (name, shape, dtype), 10 configs (mismatches); "
+             "count_params, 10 configs; model_flops, 10 configs x 4 shapes, bitwise",
+             "test_abstract_params_match_eval_shape, "
+             "test_count_params_and_model_flops_match_reference", 0, leaves + counts + flops),
+            ("PodRooflineBackend records over mesh_space(256), 3 configs x 3 modes x 1080, "
+             "bitwise (mismatches)", "test_pod_roofline_records_bitwise_over_the_mesh_space",
+             0, records),
+            ("scenarios.grid(), 324 scenarios field for field (mismatches); their features",
+             "test_grid_matches_reference, test_grid_features_bitwise", 0, grid + feats),
+            ("search_mesh(mamba2-370m, train_4k, 96 samples): mismatching configs + records",
+             "test_search_mesh_matches_reference", 0, cfgs + recs),
+            ("search_mesh: final PPO logits", "test_search_mesh_matches_reference",
+             tms.CTRL_TOL, logits)]
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
             + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
             + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows()
-            + train_rows())
+            + train_rows() + pod_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
