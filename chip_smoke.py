@@ -29,22 +29,41 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
 4. search    — the main path: ``SearchSession.joint`` over the full-width
                MobileNetV2 space with ``TrainedAccuracy`` and the PPO
                controller on the card;
-5. profile   — one training step of a search candidate under torch.profiler:
+5. runtime   — the sweep of the joint search over the constraint-modes
+               preset (4 scenarios x 16 samples, PPO on the card,
+               ``TrainedAccuracy(steps=40, batch=64)`` on the card: every 1×1
+               convolution on ``ibn_pointwise``) through the durable runtime
+               (``SearchRuntime.at``: a ``DurableRecordStore`` and a
+               ``Checkpointer``): serially in this process, then with
+               ``run_concurrent`` on 2 spawned worker processes, one of them
+               hard-killed in the middle of a job (``REPRO_FAULTS``), each
+               worker training its candidates on the card; the process
+               sweep's histories and winners must be the serial sweep's
+               bitwise, its recovery counters must show the respawn, the two
+               stores must hold the same records by decision vector, and each
+               worker that trained must have launched the kernel (an
+               accuracy wrapper, ``RecordingAccuracy``, logs every process's
+               pid, card and launch count); a budgeted run is interrupted and
+               an unbudgeted resume completes it to the serial result, and a
+               run over the finished store evaluates nothing; walls, each
+               worker's ready time, the recovery counters, the store's hit
+               rate and the launches in the parent and per worker;
+6. profile   — one training step of a search candidate under torch.profiler:
                wall time, device time, and the kernel's share of it;
-6. costmodel — labels 50,000 points of the oneshot search's joint space
+7. costmodel — labels 50,000 points of the oneshot search's joint space
                (full-width MobileNetV2's kernel / expansion / op choices at 32 px
                x the accelerator space) with the simulator, trains the MLP cost
                model (``CostModelConfig()``: 20,000 Adam steps, energy head) on
                the card, reports its validation MAPEs, and holds its forward and
                3 steps (dropout 0) card against CPU;
-7. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
+8. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
                (17 blocks, 10 classes, 32 px, batch 64, 200 supernet steps,
                warmup 50) with the REINFORCE controller on the card and the
                cost model in the loop, with exactly 105 ``ibn_pointwise``
                launches per supernet step and 35 per validation forward; the
                supernet's logits and one SGD step card against CPU for four
                draws; and 3 supernet steps under torch.profiler;
-8. attention — holds ``flash_attention`` against its plain version on the
+9. attention — holds ``flash_attention`` against its plain version on the
                card at tests/test_kernels.py's shapes (fp32 and bf16), causal
                with sq != skv, head_dims 80, 112 and 256 with G 1, 2 and 8 at
                S 1000 and 1025, and the served model's prefill shape (B 8,
@@ -55,7 +74,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                ``scaled_dot_product_attention`` there (on the model's views,
                and once contiguous), at S 4096, and at zamba2-7b's,
                hubert-xlarge's and gemma-2b's heads;
-9. ssd       — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
+10. ssd      — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, zamba2-7b's H 112 N 64, and the cluster's edges
                (S 4096 and 8192, S 2300, a cluster of 8, one chunk, G 4 with
@@ -67,14 +86,14 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                call computes the scan) as the host issues them and on the
                device alone (CUDA graphs), at mamba2's and zamba2's shapes,
                and the wrapper's host µs per call;
-10. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
+11. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, ragged edges, strided views, the
                bf16 body's edges (C 1 to 8192, D off the K steps, F under one
                tile, 60 experts of 8 rows) and qwen2-moe-a2.7b's four expert
                products, with two controls that the bf16 limit must fail;
                times kernel, plain version and ``torch.bmm`` at the four
                products;
-11. serve    — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
+12. serve    — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
                random weights from a seed on the card, 8 prompts of 1024 tokens
                through ``make_prefill_step`` (exactly 28 kernel launches) and the
                ``return_cache`` forward, the k/v written into a preallocated
@@ -82,22 +101,22 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                the first step held against a forward over the prompt plus its
                token, 4 steps over int8 caches; ms per prefill and per decode
                step, tokens/s, and where the device time goes (torch.profiler);
-12. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
+13. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
                ``ssd_scan`` launches), 64 decode steps over the prompt from a zero
                cache then 32 greedy steps at batch 8, decode vs forward held in
                fp32 and for the timed bf16 decode; times and the profiler's
                breakdown;
-13. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
+14. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
                8 x 1024 (exactly 72 ``gmm`` and 24 ``flash_attention``
                launches), a 2048-position bf16 cache filled by one multi-token
                decode step, 32 greedy steps, decode vs forward at 8 x 256 tokens
                (no capacity drops); times and the profiler's breakdown;
-14. llm      — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
+15. llm      — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
                whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups with
                its shared block on ``flash_attention`` at head_dim 112), fp32
                and bf16: the card's logits (kernels) against the port's CPU
                forward (plain versions), with each kernel's launch count;
-15. train    — the LLM families' training step at full width, 8 x 1024
+16. train    — the LLM families' training step at full width, 8 x 1024
                tokens of the LM stream a step, AdamW as ``launch/train.py``
                sets it: qwen3-1.7B (28 layers, ``flash_pallas``,
                remat="full": exactly 56 ``flash_attention`` launches a step,
@@ -112,7 +131,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                leaf, one AdamW update) with two planted faults the
                gradient limit must fail; the loop resumed after an injected
                failure from a bitwise checkpoint;
-16. mesh     — the pod mesh search (``core.meshsearch.search_mesh``) for
+17. mesh     — the pod mesh search (``core.meshsearch.search_mesh``) for
                qwen3-1.7B, mamba2-370m and qwen2-moe-a2.7b at train_4k on
                256 chips, 400 samples, seed 0, with its PPO updates on the
                card, then the same search on the CPU: the sampled configs
@@ -127,9 +146,9 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                shape-only init) against the full-width weights' element
                count, and the train phase counts its model FLOPs with
                ``launch.roofline.model_flops``;
-17. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+18. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search and oneshot for ibn_pointwise; serve, serve_ssm,
+Each main path (search, runtime and oneshot for ibn_pointwise; serve, serve_ssm,
 serve_moe and train for flash_attention, ssd_scan and gmm; mesh, which
 must launch none of them) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
@@ -145,6 +164,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -162,9 +182,10 @@ from repro_torch.common import tree_leaves, tree_map, tree_size  # noqa: E402
 from repro_torch.config import SHAPES as LLM_SHAPES  # noqa: E402
 from repro_torch.config import RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.core import (costmodel, has, meshsearch, nas, oneshot, scenarios,  # noqa: E402
-                              simulator)
+                              simulator, sweep)
+from repro_torch.core.engine import split_key  # noqa: E402
 from repro_torch.core.proxy import TrainedAccuracy, train_step  # noqa: E402
-from repro_torch.core.search import SearchConfig  # noqa: E402
+from repro_torch.core.search import SearchConfig, SearchInterrupted  # noqa: E402
 from repro_torch.core.session import SearchSession  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data.synthetic import LMStream  # noqa: E402
@@ -175,6 +196,7 @@ from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
+from repro_torch.runtime import FAULTS_ENV, Budget, DurableRecordStore, SearchRuntime  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.train import checkpoint, steps  # noqa: E402
 from repro_torch.train.loop import LoopConfig, run_training  # noqa: E402
@@ -285,6 +307,16 @@ KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
            "ssd_scan": ssd_scan, "gmm": gmm}
 # the mesh phase: one dense, the ssm and one moe config, as the reference's
 # mesh search prices them
+# the runtime phase: the constraint-modes preset's 4 scenarios, the search
+# phase's search and proxy training; a worker hard-killed in the middle of
+# lat-0.5ms's first attempt (after its first batch); a budget under the
+# sweep's 4 x 16 samples
+RUNTIME_PRESET = "constraint-modes"
+RUNTIME_SEARCH = SearchConfig(samples=16, batch=8, seed=0)
+RUNTIME_TRAIN = {"steps": 40, "batch": 64}
+RUNTIME_WORKERS = 2
+RUNTIME_FAULT = "crash:sweep.lat-0.5ms:0:1"
+RUNTIME_BUDGET = 24
 MESH_ARCHS = ("qwen3_1_7b", "mamba2_370m", "qwen2_moe_a2_7b")
 MESH_SHAPE, MESH_CHIPS, MESH_SAMPLES = "train_4k", 256, 400
 MESH_LOGIT_TOL = 1e-5
@@ -745,6 +777,198 @@ def search_phase(card: str) -> dict:
           f"reward={best['reward']:.4f} meets={best.get('meets_constraints')}  [{card}]")
     return {"wall_s": wall, "evaluated": evaluated, "trained": len(trained),
             "launches": launches, "best": best}
+
+
+# the process's age when its first candidate's training began (filled by
+# RecordingAccuracy's first call)
+_FIRST_CALL: dict = {}
+
+
+def _process_age_s() -> float:
+    """Seconds since this process started (/proc: its start, in clock ticks
+    after boot, against the machine's uptime)."""
+    start_ticks = int(Path("/proc/self/stat").read_text().rsplit(")", 1)[1].split()[19])
+    uptime = float(Path("/proc/uptime").read_text().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+@dataclasses.dataclass
+class RecordingAccuracy(TrainedAccuracy):
+    """``TrainedAccuracy`` that, after each candidate, appends this process's
+    pid, its card, the kernel's launch count so far and the process's age at
+    its first candidate to ``log_dir/acc-<pid>.jsonl``: how the runtime phase sees
+    that every worker trained on the card with the kernel. Its fields are
+    plain scalars, so its store namespace is the same in every process (and
+    in both runs that share ``log_dir``). Spawned workers import this module
+    as their main module, so it lives here, at module level."""
+
+    log_dir: str = ""
+
+    def __call__(self, spec: C.ConvNetSpec) -> float:
+        _FIRST_CALL.setdefault("age_at_first_candidate_s", _process_age_s())
+        acc = super().__call__(spec)
+        line = {"pid": os.getpid(), "device": torch.cuda.current_device(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "launches": ibn_conv.LAUNCHES, **_FIRST_CALL}
+        with open(Path(self.log_dir) / f"acc-{os.getpid()}.jsonl", "a") as f:
+            f.write(json.dumps(line) + "\n")
+        return acc
+
+
+def _acc_logs(log_dir: Path) -> dict[int, list[dict]]:
+    return {int(p.stem.split("-")[1]): [json.loads(ln) for ln in p.read_text().splitlines()]
+            for p in sorted(log_dir.glob("acc-*.jsonl"))}
+
+
+def _sweep_records(path: Path) -> dict:
+    store = DurableRecordStore(path, read_only=True)  # the base log and every segment
+    return {split_key(k)[1]: raw for k, raw, _ in store.entries()}
+
+
+def _same_sweep(label: str, got, want) -> None:
+    for g, w in zip(got.outcomes, want.outcomes, strict=True):
+        if g.scenario.name != w.scenario.name or g.result.history != w.result.history:
+            raise AssertionError(f"runtime: {label}: {g.scenario.name}'s history is not "
+                                 f"the serial sweep's")
+        if g.best != w.best or g.result.best_record != w.result.best_record:
+            raise AssertionError(f"runtime: {label}: {g.scenario.name}'s winner is not "
+                                 f"the serial sweep's")
+
+
+def runtime_phase(card: str) -> dict:
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-runtime-"))
+    try:
+        return _runtime_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _runtime_phase(card: str, root: Path) -> dict:
+    logs = root / "acc"
+    logs.mkdir()
+    acc = RecordingAccuracy(**RUNTIME_TRAIN, device=DEV, log_dir=str(logs))
+    space = nas.s1_mobilenetv2()
+    search_cfg = dataclasses.replace(RUNTIME_SEARCH, device=DEV)
+    cfg = sweep.SweepConfig(search=search_cfg)
+
+    def runner(config=cfg, signal=None):
+        return sweep.SweepRunner(RUNTIME_PRESET, space,
+                                 dataclasses.replace(acc) if signal is None else signal,
+                                 config)
+
+    # serial, in this process
+    serial_runner = runner()
+    serial_rt = SearchRuntime.at(root / "serial", root / "serial" / "store.jsonl")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    serial = serial_runner.run(runtime=serial_rt)
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    parent_launches = ibn_conv.LAUNCHES
+    serial_rt.store.close()
+    if parent_launches == 0:
+        raise AssertionError("runtime: the serial sweep never launched ibn_pointwise")
+    n_scen = len(serial.outcomes)
+    print(f"runtime: serial sweep, {RUNTIME_PRESET} ({n_scen} scenarios x "
+          f"{search_cfg.samples} samples), PPO and TrainedAccuracy({RUNTIME_TRAIN}) "
+          f"on {DEV}: wall {serial_wall:.2f} s, {serial.store_stats['puts']} evaluations for "
+          f"{serial.store_stats['gets']} lookups (hit rate "
+          f"{serial.store_stats['hit_rate']:.4f}), {parent_launches} ibn_pointwise launches "
+          f"in the parent  [{card}]")
+
+    # processes, one worker hard-killed mid-job
+    parent = os.getpid()
+    saved = os.environ.get(FAULTS_ENV)
+    os.environ[FAULTS_ENV] = RUNTIME_FAULT
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        proc = runner(dataclasses.replace(cfg, workers=RUNTIME_WORKERS, processes=True)).run(
+            runtime=SearchRuntime.at(root / "proc", root / "proc" / "store.jsonl"))
+        proc_wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop(FAULTS_ENV, None)
+        else:
+            os.environ[FAULTS_ENV] = saved
+    if ibn_conv.LAUNCHES != 0:
+        raise AssertionError("runtime: the parent trained during the process sweep")
+    rec = proc.recovery
+    if rec["crashes"] < 1 or rec["respawns"] < 1 or rec["retries"] < 1:
+        raise AssertionError(f"runtime: the injected crash was not healed: {rec}")
+    _same_sweep("process sweep", proc, serial)
+    serial_records = _sweep_records(root / "serial" / "store.jsonl")
+    proc_records = _sweep_records(root / "proc" / "store.jsonl")
+    if proc_records != serial_records:
+        raise AssertionError(f"runtime: the stores differ by decision vector "
+                             f"({len(proc_records)} against {len(serial_records)} records)")
+    workers = {pid: lines for pid, lines in _acc_logs(logs).items() if pid != parent}
+    if len(workers) < RUNTIME_WORKERS:
+        raise AssertionError(f"runtime: {len(workers)} worker processes trained, "
+                             f"{RUNTIME_WORKERS} workers and {rec['respawns']} respawns ran")
+    for pid, lines in workers.items():
+        if lines[-1]["launches"] == 0:
+            raise AssertionError(f"runtime: worker {pid} trained {len(lines)} candidates "
+                                 f"without launching ibn_pointwise")
+    worker_launches = {pid: lines[-1]["launches"] for pid, lines in workers.items()}
+    stats = proc.store_stats
+    print(f"runtime: process sweep, {RUNTIME_WORKERS} spawned workers, fault "
+          f"{RUNTIME_FAULT!r}: wall {proc_wall:.2f} s; histories, winners and store records "
+          f"(by decision vector) bitwise the serial sweep's; recovery {rec}; "
+          f"{stats['puts']} evaluations for {stats['gets']} lookups across "
+          f"{stats['workers']} worker incarnations (hit rate {stats['hit_rate']:.4f})  [{card}]")
+    for pid, lines in workers.items():
+        first = lines[0]
+        print(f"runtime: worker pid {pid}: card {first['device']} (CUDA_VISIBLE_DEVICES="
+              f"{first['visible']}), {len(lines)} candidates trained, "
+              f"{worker_launches[pid]} ibn_pointwise launches; its first candidate's "
+              f"training began {first['age_at_first_candidate_s']:.2f} s after the process "
+              f"started (its PPO controller's first CUDA call made the context before "
+              f"it)  [{card}]")
+    print(f"runtime: workers' seconds from spawn to ready (process start, torch and "
+          f"module imports, store load), per incarnation: {proc.ready_s}  [{card}]")
+
+    # a budgeted run is interrupted; an unbudgeted resume completes it. The
+    # serial run's memoised accuracies stand in for the training: this part
+    # holds the checkpoints, not the proxy
+    budget_dir = root / "budget"
+    budget = Budget(max_samples=RUNTIME_BUDGET)
+    try:
+        runner(signal=serial_runner.acc_fn).run(runtime=SearchRuntime.at(
+            budget_dir, budget_dir / "store.jsonl", budget=budget))
+    except SearchInterrupted as e:
+        interrupted = f"{e.tag} at {e.samples_done}/{e.samples}"
+    else:
+        raise AssertionError("runtime: the budgeted sweep was not interrupted")
+    resumed_rt = SearchRuntime.at(budget_dir, budget_dir / "store.jsonl")
+    resumed = runner(signal=serial_runner.acc_fn).run(runtime=resumed_rt)
+    resumed_rt.store.close()
+    _same_sweep("resumed sweep", resumed, serial)
+
+    # a second run over the finished store, fresh checkpoints and a fresh
+    # accuracy signal: every lookup hits the durable store
+    reset_counts()
+    rerun_rt = SearchRuntime.at(root / "rerun", root / "serial" / "store.jsonl")
+    rerun = runner().run(runtime=rerun_rt)
+    rerun_rt.store.close()
+    _same_sweep("rerun", rerun, serial)
+    if rerun_rt.store.appended != 0 or rerun.store_stats["puts"] != 0 or ibn_conv.LAUNCHES:
+        raise AssertionError(f"runtime: the rerun evaluated {rerun.store_stats['puts']} "
+                             f"candidates over the finished store")
+    print(f"runtime: budget {RUNTIME_BUDGET} of {n_scen * search_cfg.samples} samples "
+          f"interrupted {interrupted}; the resume completed it to the serial result; a "
+          f"rerun over the finished store: 0 new records, hit rate "
+          f"{rerun.store_stats['hit_rate']:.4f}, 0 launches  [{card}]")
+    return {"serial_wall_s": serial_wall, "process_wall_s": proc_wall,
+            "parent_launches": parent_launches, "worker_launches": worker_launches,
+            "launches": parent_launches + sum(worker_launches.values()),
+            "recovery": rec, "ready_s": proc.ready_s,
+            "age_at_first_candidate_s": {pid: lines[0]["age_at_first_candidate_s"]
+                                         for pid, lines in workers.items()},
+            "serial_store": serial.store_stats, "process_store": stats,
+            "records": len(serial_records), "interrupted": interrupted,
+            "rerun_hit_rate": rerun.store_stats["hit_rate"]}
 
 
 def profile_phase(card: str) -> dict:
@@ -2732,6 +2956,7 @@ def main() -> int:
     kern = timed("kernel", kernel_phase)
     model = timed("model", model_phase)
     search = timed("search", search_phase)
+    runtime = timed("runtime", runtime_phase)
     prof = timed("profile", profile_phase)
     cost = timed("costmodel", costmodel_phase)
     one = timed("oneshot", lambda c: oneshot_phase(c, cost["model"]))
@@ -2757,7 +2982,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ibn_pointwise.cu",
         "replaces": "src/repro/kernels/ibn_conv.py:49",
-        "launches": search["launches"],
+        "launches": search["launches"] + runtime["launches"],
+        "search_launches": search["launches"],
+        "runtime_launches": {"parent": runtime["parent_launches"],
+                             "workers": runtime["worker_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2851,6 +3079,7 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernel": kern, "model": model, "search": search,
+             "runtime": runtime,
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,

@@ -23,7 +23,11 @@ Two paths, both implemented (DESIGN.md §2):
   accuracy (the paper's 5-epoch proxy-task pattern). In the port it trains
   on ``device`` (the card by default), with every 1×1 convolution of the
   candidate on the ``ibn_pointwise`` kernel; ``train_step`` is its single
-  SGD step.
+  SGD step. On the card it trains under ``CUDNN_FLAGS`` (TF32 off, cuDNN's
+  deterministic algorithms) with matmul TF32 off, whatever the process set,
+  so a spec's accuracy is the same in every process: the sweep's process
+  workers then reproduce the serial run bitwise. ``prepare`` builds the
+  kernel before a process pool spawns.
 
 * ``CachedAccuracy`` — a memoizing wrapper for either signal, keyed on the
   (frozen, hashable) ``ConvNetSpec``, with FIFO eviction at the size cap
@@ -47,7 +51,13 @@ import torch
 from repro_torch.common import FifoDict, tree_leaves, tree_unflatten
 from repro_torch.core import simulator
 from repro_torch.data.synthetic import VisionStream
+from repro_torch.kernels import ibn_conv
 from repro_torch.models import convnets as C
+
+#: the cuDNN settings ``TrainedAccuracy`` trains under on the card (module
+#: doc); None leaves the process's own
+CUDNN_FLAGS = {"enabled": True, "benchmark": False, "deterministic": True,
+               "allow_tf32": False}
 
 # Table-3-calibrated constants (see module docstring)
 _A, _B, _G = 80.37137624, 2.57339702, 0.83920754
@@ -237,7 +247,24 @@ class TrainedAccuracy:
     seed: int = 0
     device: str = "cuda"
 
+    def prepare(self) -> None:
+        """Build what training on the card launches (the ``ibn_pointwise``
+        kernel), so process workers load it instead of each building it."""
+        if torch.device(self.device).type == "cuda":
+            ibn_conv.build()
+
     def __call__(self, spec: C.ConvNetSpec) -> float:
+        if torch.device(self.device).type != "cuda" or CUDNN_FLAGS is None:
+            return self._train(spec)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.backends.cudnn.flags(**CUDNN_FLAGS):
+                return self._train(spec)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def _train(self, spec: C.ConvNetSpec) -> float:
         spec = dataclasses.replace(
             spec, image_size=self.image_size, num_classes=self.num_classes
         )

@@ -34,9 +34,11 @@ engine the driver builds — and across drivers/scenarios, which is how the
 scenario sweep (``repro_torch.core.sweep``) amortizes evaluation.
 
 Port note: a copy of ``repro/core/search.py`` with device plumbing
-(``SearchConfig.device``, passed to the PPO / REINFORCE controller). The
-durable runtime is not ported yet, so ``runtime=``/``checkpoint_dir=``
-raise (``_as_runtime``); the description below is the reference's.
+(``SearchConfig.device``, passed to the PPO / REINFORCE controller). Every
+checkpoint ``_drive`` writes carries ``meta["impl"] = engine.IMPL``, and a
+resume refuses a checkpoint of the other implementation (or one without the
+tag, as the reference writes them); the description below is the
+reference's.
 
 Durability: every driver also accepts ``runtime=`` (any object with the
 ``repro_torch.runtime.SearchRuntime`` surface: ``store``, ``checkpoint``,
@@ -62,7 +64,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.core.controllers import CONTROLLERS
-from repro_torch.core.engine import EvaluationEngine, RecordStore
+from repro_torch.core.engine import IMPL, EvaluationEngine, RecordStore
 from repro_torch.core.pareto import DEFAULT_OBJECTIVES, ParetoFrontier
 from repro_torch.core.reward import RewardConfig
 from repro_torch.core.scenarios import Scenario
@@ -172,14 +174,13 @@ def _objective(rcfg: Optional[RewardConfig],
 
 
 def _as_runtime(runtime, checkpoint_dir):
-    """Resolve the ``runtime=``/``checkpoint_dir=`` driver arguments. The
-    port has no durable runtime yet, so either one raises."""
-    if runtime is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "runtime= and checkpoint_dir= need repro_torch.runtime, which is "
-            "not ported yet; run the search without them"
-        )
-    return None
+    """Resolve the ``runtime=``/``checkpoint_dir=`` driver arguments (an
+    explicit runtime wins; the shorthand builds a checkpoint-only one)."""
+    if runtime is not None or checkpoint_dir is None:
+        return runtime
+    from repro_torch.runtime import SearchRuntime  # deferred: core stays standalone
+
+    return SearchRuntime.at(checkpoint_dir)
 
 
 def _runtime_store(cfg: SearchConfig, runtime) -> Optional[RecordStore]:
@@ -217,7 +218,9 @@ def _apply_transfer(ctrl, transfer: TransferSpec, cfg: SearchConfig,
         # a full checkpoint state nests the controller snapshot; a bare
         # controller.state() dict IS the snapshot
         ctrl_state = donor_state.get("controller", donor_state)
-        if meta and meta.get("controller") != cfg.controller:
+        if meta and meta.get("impl") != IMPL:
+            reason = f"donor implementation {meta.get('impl')!r}"
+        elif meta and meta.get("controller") != cfg.controller:
             reason = f"donor controller {meta.get('controller')!r}"
         elif meta and meta.get("space") != space.name:
             reason = f"donor space {meta.get('space')!r}"
@@ -260,6 +263,12 @@ def _drive(space, engine: EvaluationEngine, cfg: SearchConfig,
         if state is not None:
             resumed = True
             meta = state["meta"]
+            if meta.get("impl") != IMPL:
+                raise ValueError(
+                    f"checkpoint {tag!r} was written by implementation "
+                    f"{meta.get('impl') or 'repro (untagged)'!r}, not "
+                    f"{IMPL!r}; refusing to resume"
+                )
             want = {"space": space.name, "controller": cfg.controller,
                     "seed": cfg.seed, "samples": cfg.samples,
                     "batch": cfg.batch,
@@ -294,7 +303,8 @@ def _drive(space, engine: EvaluationEngine, cfg: SearchConfig,
 
     def save():
         state = {
-            "meta": {"space": space.name, "controller": cfg.controller,
+            "meta": {"impl": IMPL,
+                     "space": space.name, "controller": cfg.controller,
                      "seed": cfg.seed, "samples": cfg.samples,
                      "batch": cfg.batch,
                      "scenario": None if scenario is None else scenario.name},

@@ -32,8 +32,7 @@ builds (or reuses) its engine and drives one search; a session can run many
 searches against one runtime/store, which is exactly the sweep pattern.
 
 Port note: a copy of ``repro/core/session.py``. The controller's device is
-``cfg.device`` and the accuracy signal's its own (``TrainedAccuracy.device``);
-``runtime=``/``checkpoint_dir=`` raise until the runtime is ported.
+``cfg.device`` and the accuracy signal's its own (``TrainedAccuracy.device``).
 """
 
 from __future__ import annotations

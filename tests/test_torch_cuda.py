@@ -7,8 +7,9 @@ training steps (loss, gradients, an AdamW update, each kernel's launches
 per step under remat "none" and "full", and planted faults the gradient
 limit must see) against the port's CPU step, and the
 oneshot supernet (ibn_pointwise) and the learned cost model against the
-port's CPU run, and the pod mesh search with its PPO updates on the card
-against the same search on the CPU. Every test here carries the ``cuda`` marker
+port's CPU run, the pod mesh search with its PPO updates on the card
+against the same search on the CPU, and a sweep whose spawned workers train
+their candidates on the card against the serial sweep. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -869,3 +870,64 @@ def test_mesh_search_on_card_matches_cpu():
     cpu = meshsearch.search_mesh(cfg, shape, samples=32, seed=0, device="cpu")
     assert repr(card.history) == repr(cpu.history)
     assert card.best_cfg == cpu.best_cfg
+
+
+@pytest.mark.cuda
+def test_process_sweep_on_card_is_bitwise_the_serial_one(tmp_path):
+    """A 2-scenario sweep with proxy training on the card, serially here and
+    on 2 spawned workers: the same histories and winners bitwise, and every
+    worker that trained launched ibn_pointwise (chip_smoke's
+    ``RecordingAccuracy`` logs each process's launches)."""
+    _need_card()
+    import os
+
+    from repro_torch.core import nas, sweep
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.runtime import SearchRuntime
+
+    logs = tmp_path / "acc"
+    logs.mkdir()
+    acc = chip_smoke.RecordingAccuracy(steps=4, batch=16, device="cuda", log_dir=str(logs))
+    cfg = sweep.SweepConfig(search=SearchConfig(samples=8, batch=4, seed=0))
+    names = ["lat-0.5ms", "energy-0.7mJ"]
+    ibn_conv.LAUNCHES = 0
+    serial = sweep.SweepRunner(names, nas.s1_mobilenetv2(), acc, cfg).run(
+        runtime=SearchRuntime.at(tmp_path / "s", tmp_path / "s" / "store.jsonl"))
+    assert ibn_conv.LAUNCHES > 0
+    proc = sweep.SweepRunner(names, nas.s1_mobilenetv2(), dataclasses.replace(acc),
+                             dataclasses.replace(cfg, workers=2, processes=True)).run(
+        runtime=SearchRuntime.at(tmp_path / "p", tmp_path / "p" / "store.jsonl"))
+    for s, p in zip(serial.outcomes, proc.outcomes):
+        assert p.result.history == s.result.history  # bitwise
+        assert p.best == s.best
+    workers = {pid: lines for pid, lines in chip_smoke._acc_logs(logs).items()
+               if pid != os.getpid()}
+    assert len(workers) == 2
+    assert all(lines[-1]["launches"] > 0 for lines in workers.values())
+
+
+@pytest.mark.cuda
+def test_sweep_cli_trains_on_card_in_processes_and_resumes(tmp_path, capsys):
+    """``scripts/torch_sweep.py --accuracy trained`` on the card: 2 spawned
+    workers train the candidates, then ``--resume`` replays the same table."""
+    _need_card()
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_sweep.py"
+    spec = importlib.util.spec_from_file_location("torch_sweep", path)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    argv = ["--quick", "--accuracy", "trained", "--samples", "8", "--batch", "4",
+            "--scenarios", "lat-0.3ms,energy-0.7mJ", "--store", str(tmp_path / "s.jsonl")]
+    cli.main(argv + ["--workers", "2", "--processes"])
+    first = capsys.readouterr().out
+    cli.main(argv + ["--resume"])
+    again = capsys.readouterr().out
+
+    def table(out):
+        lines = out.splitlines()
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("scenario "))
+        return lines[start:start + 4]  # header, rule, the two scenarios
+
+    assert table(again) == table(first)
+    assert "appended 0)" in again

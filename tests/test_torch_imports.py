@@ -1,6 +1,6 @@
-"""Every module of the PyTorch port, and chip_smoke.py, imports with JAX and
-the reference package blocked: the port carries its own copy of whatever
-it needs from ``repro``."""
+"""Every module of the PyTorch port, chip_smoke.py and the port's scripts
+(``scripts/torch_*.py``) import with JAX and the reference package blocked:
+the port carries its own copy of whatever it needs from ``repro``."""
 import os
 import subprocess
 import sys
@@ -13,7 +13,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, pathlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 import repro_torch
@@ -22,6 +22,9 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # its phases run only under __main__
+import runpy
+for script in sorted(pathlib.Path("scripts").glob("torch_*.py")):
+    runpy.run_path(str(script), run_name="imported")  # main() runs only as __main__
 leaked = sorted(n for n, m in sys.modules.items()
                 if m is not None and (n == "jax" or n.startswith(("jax.", "repro."))))
 print(len(names), leaked)
@@ -34,12 +37,13 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, leaked = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 69  # every module the port has; one that drops out shows
+    assert int(n_modules) >= 76  # every module the port has; one that drops out shows
     assert leaked.strip() == "[]"
 
 
 def test_port_sources_never_name_jax_or_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
     for path in files:
         for line in path.read_text().splitlines():
             code = line.split("#", 1)[0].strip()

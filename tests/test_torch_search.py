@@ -136,8 +136,21 @@ def test_entry_points_default_to_the_card():
     assert device.default == "cuda"
 
 
-def test_runtime_arguments_raise_until_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="runtime"):
-        port_session.SearchSession(port_nas.tiny_space(),
-                                   port_proxy.SurrogateAccuracy(),
-                                   checkpoint_dir=str(tmp_path))
+def test_session_checkpoint_dir_resumes_bitwise(tmp_path):
+    from repro_torch.runtime import Budget, Checkpointer, SearchRuntime
+
+    cfg = port_search.SearchConfig(samples=24, batch=8, seed=0, device="cpu")
+    rcfg = _rcfg(port_reward, latency=0.05)
+
+    def session(**kw):
+        return port_session.SearchSession(port_nas.tiny_space(),
+                                          port_proxy.SurrogateAccuracy(), cfg=cfg, **kw)
+
+    whole = session().joint(rcfg=rcfg)
+    budgeted = SearchRuntime(checkpoint=Checkpointer(tmp_path), budget=Budget(max_samples=8))
+    with pytest.raises(port_search.SearchInterrupted):
+        session(runtime=budgeted).joint(rcfg=rcfg, tag="t")
+    resumed = session(checkpoint_dir=str(tmp_path)).joint(rcfg=rcfg, tag="t")
+    assert resumed.history == whole.history  # bitwise
+    assert resumed.best_record == whole.best_record
+    assert np.array_equal(resumed.best_vec, whole.best_vec)

@@ -19,12 +19,14 @@ import test_torch_attention as ta  # noqa: E402
 import test_torch_cascade as tca  # noqa: E402
 import test_torch_convnets as tc  # noqa: E402
 import test_torch_costmodel as tcm  # noqa: E402
+import test_torch_faults as tf  # noqa: E402
 import test_torch_hybrid as th  # noqa: E402
 import test_torch_kernels as tk  # noqa: E402
 import test_torch_meshsearch as tms  # noqa: E402
 import test_torch_moe as tm  # noqa: E402
 import test_torch_oneshot as to  # noqa: E402
 import test_torch_roofline as tr  # noqa: E402
+import test_torch_runtime as tru  # noqa: E402
 import test_torch_scenarios as tsc  # noqa: E402
 import test_torch_search as ts  # noqa: E402
 import test_torch_ssm as tss  # noqa: E402
@@ -568,11 +570,64 @@ def pod_rows():
              tms.CTRL_TOL, logits)]
 
 
+def runtime_rows():
+    """Fault plans, the sweep against the reference's (evolution and PPO),
+    the durable logs by decision vector and plan_transfer on the grid."""
+    import tempfile
+
+    plans = 0
+    for spec in tf.SPECS:
+        port, ref = tf.port_faults.FaultPlan.parse(spec), tf.ref_faults.FaultPlan.parse(spec)
+        plans += tf._events(port) != tf._events(ref) or port.spec() != ref.spec()
+    for seed in (0, 1, 7, 12345):
+        kw = dict(crashes=2, hangs=1, flaky=2, slow=2, torn=1, ckpt=1, admits=2)
+        plans += (tf._events(tf.port_faults.FaultPlan.sample(tf.JOBS, seed=seed, **kw))
+                  != tf._events(tf.ref_faults.FaultPlan.sample(tf.JOBS, seed=seed, **kw)))
+    root = Path(tempfile.mkdtemp(prefix="parity-sweep-"))
+    out = {}
+    for controller in ("evolution", "ppo"):
+        ref = tru._sweep(tru.ref_sweep, tru.ref_nas, tru.ref_proxy, tru.RefRuntime,
+                         tru.RefCheckpointer, tru.RefStore, tru.ref_search, controller,
+                         root / controller / "ref")
+        port = tru._sweep(tru.port_sweep, tru.port_nas, tru.port_proxy, tru.SearchRuntime,
+                          tru.Checkpointer, tru.DurableRecordStore, tru.port_search,
+                          controller, root / controller / "port")
+        out[controller] = (ref, port)
+    (ref_e, _, ref_store), (port_e, _, port_store) = out["evolution"]
+    hist = sum(a.result.history != b.result.history or a.best != b.best
+               for a, b in zip(port_e.outcomes, ref_e.outcomes))
+    hist += port_e.table() != ref_e.table()
+    by_vec = {tru.port_engine.split_key(k)[1]: raw for k, raw, _ in ref_store.entries()}
+    logs = int(tru._by_vec(port_store) != by_vec)
+    (ref_p, ref_logits, _), (port_p, port_logits, _) = out["ppo"]
+    cfgs = sum([h["vec"] for h in a.result.history] != [h["vec"] for h in b.result.history]
+               for a, b in zip(port_p.outcomes, ref_p.outcomes))
+    logits = max(float(np.max(np.abs(port_logits[n] - ref_logits[n]))) for n in ref_logits)
+    transfer = 0
+    port_grid, ref_grid = tru.port_scenarios.grid(), tru.ref_scenarios.grid()
+    for k in (None, 1, 5, 40):
+        a, b = tru.port_sweep.plan_transfer(port_grid, k=k), tru.ref_sweep.plan_transfer(ref_grid, k=k)
+        transfer += a.medoids != b.medoids or a.donors != b.donors
+    return [("FaultPlan parse / spec (5 specs), sample (4 seeds) against the reference "
+             "(mismatches)", "test_parse_and_spec_equal_the_reference, "
+             "test_sample_equals_the_reference_for_the_seed", 0, plans),
+            ("paper-use-cases sweep, evolution, tiny space: histories, winners, table "
+             "(mismatches)", "test_sweep_matches_the_reference", 0, hist),
+            ("the same sweep's durable logs, records by decision vector (mismatch)",
+             "test_durable_logs_hold_the_same_records_by_vector", 0, logs),
+            ("paper-use-cases sweep, PPO: sampled configs (mismatching scenarios)",
+             "test_sweep_matches_the_reference", 0, cfgs),
+            ("paper-use-cases sweep, PPO: final logits, 6 scenarios",
+             "test_sweep_matches_the_reference", tru.LOGIT_TOL, logits),
+            ("plan_transfer on scenarios.grid(), k None / 1 / 5 / 40 (mismatches)",
+             "test_plan_transfer_is_bitwise_on_the_grid", 0, transfer)]
+
+
 def main():
     rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
             + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
             + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows()
-            + train_rows() + pod_rows())
+            + train_rows() + pod_rows() + runtime_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
