@@ -48,22 +48,44 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                run over the finished store evaluates nothing; walls, each
                worker's ready time, the recovery counters, the store's hit
                rate and the launches in the parent and per worker;
-6. profile   — one training step of a search candidate under torch.profiler:
+6. serve_tier — the serve tier over the runtime phase's serial store (a
+               copy, taken before that phase's directory goes): compacts it
+               with ``snapshot_store`` twice (bitwise equal bytes), loads the
+               snapshot verified and not, its records equal to
+               ``load_store_frontier``'s, with a control that must fail (one
+               payload byte flipped fails ``verify``); answers every
+               registered scenario, the constraint-modes preset and 300
+               seeded ad-hoc envelopes over the frontier's own ranges, tiled
+               20 times and shuffled, each answer equal to
+               ``brute_force_best``, with 0 evaluations and 0 kernel launches;
+               then admits two envelopes below the frontier's least latency at
+               once (``AdmissionController``, ``max_concurrent=2``, budget 16,
+               batch 8, REINFORCE on the card, the durable store given) whose
+               searches train their candidates with
+               ``TrainedAccuracy(steps=40, batch=64)`` on the card (K1), folds
+               them in, re-asks (no more admissions; answers equal brute
+               force over the folded frontier), and holds each admitted
+               search's history and store records bitwise against the same
+               search run alone into a store of its own; snapshot build and
+               load ms, cold JSONL reload ms, warm p50 / p99 µs, queries/s,
+               cache hit rate, and per admission its status, wall s,
+               candidates trained and its lone run's K1 launches;
+7. profile   — one training step of a search candidate under torch.profiler:
                wall time, device time, and the kernel's share of it;
-7. costmodel — labels 50,000 points of the oneshot search's joint space
+8. costmodel — labels 50,000 points of the oneshot search's joint space
                (full-width MobileNetV2's kernel / expansion / op choices at 32 px
                x the accelerator space) with the simulator, trains the MLP cost
                model (``CostModelConfig()``: 20,000 Adam steps, energy head) on
                the card, reports its validation MAPEs, and holds its forward and
                3 steps (dropout 0) card against CPU;
-8. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
+9. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
                (17 blocks, 10 classes, 32 px, batch 64, 200 supernet steps,
                warmup 50) with the REINFORCE controller on the card and the
                cost model in the loop, with exactly 105 ``ibn_pointwise``
                launches per supernet step and 35 per validation forward; the
                supernet's logits and one SGD step card against CPU for four
                draws; and 3 supernet steps under torch.profiler;
-9. attention — holds ``flash_attention`` against its plain version on the
+10. attention — holds ``flash_attention`` against its plain version on the
                card at tests/test_kernels.py's shapes (fp32 and bf16), causal
                with sq != skv, head_dims 80, 112 and 256 with G 1, 2 and 8 at
                S 1000 and 1025, and the served model's prefill shape (B 8,
@@ -74,7 +96,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                ``scaled_dot_product_attention`` there (on the model's views,
                and once contiguous), at S 4096, and at zamba2-7b's,
                hubert-xlarge's and gemma-2b's heads;
-10. ssd      — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
+11. ssd      — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, zamba2-7b's H 112 N 64, and the cluster's edges
                (S 4096 and 8192, S 2300, a cluster of 8, one chunk, G 4 with
@@ -86,14 +108,14 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                call computes the scan) as the host issues them and on the
                device alone (CUDA graphs), at mamba2's and zamba2's shapes,
                and the wrapper's host µs per call;
-11. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
+12. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, ragged edges, strided views, the
                bf16 body's edges (C 1 to 8192, D off the K steps, F under one
                tile, 60 experts of 8 rows) and qwen2-moe-a2.7b's four expert
                products, with two controls that the bf16 limit must fail;
                times kernel, plain version and ``torch.bmm`` at the four
                products;
-12. serve    — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
+13. serve    — qwen3-1.7B at full width with ``attn_impl="flash_pallas"``,
                random weights from a seed on the card, 8 prompts of 1024 tokens
                through ``make_prefill_step`` (exactly 28 kernel launches) and the
                ``return_cache`` forward, the k/v written into a preallocated
@@ -101,22 +123,22 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                the first step held against a forward over the prompt plus its
                token, 4 steps over int8 caches; ms per prefill and per decode
                step, tokens/s, and where the device time goes (torch.profiler);
-13. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
+14. serve_ssm — mamba2-370m at full width: prefill 8 x 1024 (exactly 48
                ``ssd_scan`` launches), 64 decode steps over the prompt from a zero
                cache then 32 greedy steps at batch 8, decode vs forward held in
                fp32 and for the timed bf16 decode; times and the profiler's
                breakdown;
-14. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
+15. serve_moe — qwen2-moe-a2.7b at full width with ``flash_pallas``: prefill
                8 x 1024 (exactly 72 ``gmm`` and 24 ``flash_attention``
                launches), a 2048-position bf16 cache filled by one multi-token
                decode step, 32 greedy steps, decode vs forward at 8 x 256 tokens
                (no capacity drops); times and the profiler's breakdown;
-15. llm      — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
+16. llm      — full width cut in depth (qwen3-1.7B at 4 layers, mamba2-370m
                whole, qwen2-moe-a2.7b at 2 layers, zamba2-7b at 2 groups with
                its shared block on ``flash_attention`` at head_dim 112), fp32
                and bf16: the card's logits (kernels) against the port's CPU
                forward (plain versions), with each kernel's launch count;
-16. train    — the LLM families' training step at full width, 8 x 1024
+17. train    — the LLM families' training step at full width, 8 x 1024
                tokens of the LM stream a step, AdamW as ``launch/train.py``
                sets it: qwen3-1.7B (28 layers, ``flash_pallas``,
                remat="full": exactly 56 ``flash_attention`` launches a step,
@@ -131,7 +153,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                leaf, one AdamW update) with two planted faults the
                gradient limit must fail; the loop resumed after an injected
                failure from a bitwise checkpoint;
-17. mesh     — the pod mesh search (``core.meshsearch.search_mesh``) for
+18. mesh     — the pod mesh search (``core.meshsearch.search_mesh``) for
                qwen3-1.7B, mamba2-370m and qwen2-moe-a2.7b at train_4k on
                256 chips, 400 samples, seed 0, with its PPO updates on the
                card, then the same search on the CPU: the sampled configs
@@ -146,9 +168,9 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                shape-only init) against the full-width weights' element
                count, and the train phase counts its model FLOPs with
                ``launch.roofline.model_flops``;
-18. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+19. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search, runtime and oneshot for ibn_pointwise; serve, serve_ssm,
+Each main path (search, runtime, serve_tier and oneshot for ibn_pointwise; serve, serve_ssm,
 serve_moe and train for flash_attention, ssd_scan and gmm; mesh, which
 must launch none of them) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
@@ -197,6 +219,10 @@ from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.runtime import FAULTS_ENV, Budget, DurableRecordStore, SearchRuntime  # noqa: E402
+from repro_torch.serve import (AdmissionConfig, AdmissionController,  # noqa: E402
+                               FrontierServer, brute_force_best, load_snapshot,
+                               load_store_frontier, snapshot_store)
+from repro_torch.serve import admission as serve_admission  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.train import checkpoint, steps  # noqa: E402
 from repro_torch.train.loop import LoopConfig, run_training  # noqa: E402
@@ -317,6 +343,17 @@ RUNTIME_TRAIN = {"steps": 40, "batch": 64}
 RUNTIME_WORKERS = 2
 RUNTIME_FAULT = "crash:sweep.lat-0.5ms:0:1"
 RUNTIME_BUDGET = 24
+# the serve_tier phase: the runtime phase's serial store; every registered
+# scenario, the runtime preset and seeded ad-hoc envelopes over the
+# frontier's own ranges, tiled for re-asks (benchmarks/serve_bench.py's
+# workload); two admitted searches at once, trained as the search phase
+# trains, their latency targets these fractions of the frontier's least
+SERVE_TIER_ADHOC = 300
+SERVE_TIER_REPEATS = 20
+SERVE_TIER_COLD_REPS = 5
+SERVE_TIER_ADMISSION = AdmissionConfig(budget_samples=16, batch=8, max_concurrent=2)
+SERVE_TIER_TRAIN = {"steps": 40, "batch": 64}
+SERVE_TIER_TARGETS = (0.9, 0.8)
 MESH_ARCHS = ("qwen3_1_7b", "mamba2_370m", "qwen2_moe_a2_7b")
 MESH_SHAPE, MESH_CHIPS, MESH_SAMPLES = "train_4k", 256, 400
 MESH_LOGIT_TOL = 1e-5
@@ -835,10 +872,16 @@ def _same_sweep(label: str, got, want) -> None:
                                  f"the serial sweep's")
 
 
-def runtime_phase(card: str) -> dict:
+def runtime_phase(card: str, keep_store: Path | None = None) -> dict:
+    """The runtime phase in a temporary directory; ``keep_store`` receives a
+    copy of its serial sweep's store (the serve_tier phase's input) before
+    the directory goes."""
     root = Path(tempfile.mkdtemp(prefix="chip-smoke-runtime-"))
     try:
-        return _runtime_phase(card, root)
+        out = _runtime_phase(card, root)
+        if keep_store is not None:
+            shutil.copyfile(root / "serial" / "store.jsonl", keep_store)
+        return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -969,6 +1012,233 @@ def _runtime_phase(card: str, root: Path) -> dict:
             "serial_store": serial.store_stats, "process_store": stats,
             "records": len(serial_records), "interrupted": interrupted,
             "rerun_hit_rate": rerun.store_stats["hit_rate"]}
+
+
+def _dumps(rec) -> str:
+    return json.dumps(rec, default=str)
+
+
+def _serve_workload(records: list) -> tuple[list, list]:
+    """Every registered scenario, the runtime preset's and seeded ad-hoc
+    envelopes spread over the frontier's own latency, energy and area
+    ranges (hard and soft), then the pool tiled ``SERVE_TIER_REPEATS`` times
+    and shuffled so the answer cache sees re-asks: (pool, queries)."""
+    rng = np.random.default_rng(0)
+    lat = [r["latency_ms"] for r in records]
+    energy = [r["energy_mj"] for r in records if r.get("energy_mj") is not None]
+    area = [r["area_mm2"] for r in records]
+    pool = [scenarios.get(n) for n in scenarios.names()]
+    pool += scenarios.expand([RUNTIME_PRESET])
+    for i in range(SERVE_TIER_ADHOC):
+        kw = {"name": f"adhoc-{i}", "mode": "hard" if rng.random() < 0.7 else "soft",
+              "area_target_mm2": float(rng.uniform(0.5 * min(area), 1.5 * max(area)))}
+        if rng.random() < 0.6:
+            kw["latency_target_ms"] = float(rng.uniform(0.5 * min(lat), 1.5 * max(lat)))
+        else:
+            kw["energy_target_mj"] = float(rng.uniform(0.5 * min(energy), 1.5 * max(energy)))
+        pool.append(scenarios.Scenario(**kw))
+    queries = pool * SERVE_TIER_REPEATS
+    rng.shuffle(queries)
+    return pool, queries
+
+
+@contextlib.contextmanager
+def _recorded_admissions():
+    """The admission module's ``SearchExecutor`` swapped for a subclass that
+    keeps, per admitted search, its job, status, wall s, the candidates its
+    accuracy memo trained (misses) and its history."""
+    runs = []
+
+    class Executor(serve_admission.SearchExecutor):
+        def run(self, jobs):
+            t0 = time.perf_counter()
+            report = super().run(jobs)
+            wall = time.perf_counter() - t0
+            for job in jobs:
+                o = report.outcomes[job.name]
+                runs.append({"job": job.name, "status": o.status, "wall_s": wall,
+                             "trained": job.kwargs["acc_fn"].misses,
+                             "history": None if o.result is None else o.result.history})
+            return report
+
+    saved = serve_admission.SearchExecutor
+    serve_admission.SearchExecutor = Executor
+    try:
+        yield runs
+    finally:
+        serve_admission.SearchExecutor = saved
+
+
+def _store_by_key(path: Path) -> dict:
+    return {k: raw for k, raw, _ in DurableRecordStore(path, read_only=True).entries()}
+
+
+def serve_tier_phase(card: str, root: Path) -> dict:
+    """The serve tier over the runtime phase's store (``root/store.jsonl``):
+    compact and reload, serve a tiled workload against brute force, then
+    admit two searches at once that train on the card."""
+    store_path = root / "store.jsonl"
+    out: dict = {}
+
+    # 1. compact and reload
+    t0 = time.perf_counter()
+    header, info = snapshot_store(store_path, root / "a.snap")
+    out["build_ms"] = (time.perf_counter() - t0) * 1e3
+    snapshot_store(store_path, root / "b.snap")
+    if (root / "a.snap").read_bytes() != (root / "b.snap").read_bytes():
+        raise AssertionError("serve_tier: two snapshots of one store differ")
+    load_ms = {}
+    for verify in (True, False):
+        t0 = time.perf_counter()
+        snap = load_snapshot(root / "a.snap", verify=verify)
+        frontier = snap.frontier()
+        load_ms[verify] = (time.perf_counter() - t0) * 1e3
+    want, _ = load_store_frontier(store_path)
+    if [_dumps(r) for r in frontier.records()] != [_dumps(r) for r in want.records()]:
+        raise AssertionError("serve_tier: the snapshot's records are not the store's")
+    bad = bytearray((root / "a.snap").read_bytes())
+    bad[-3] ^= 0xFF  # the control: one payload byte flipped
+    (root / "bad.snap").write_bytes(bytes(bad))
+    try:
+        load_snapshot(root / "bad.snap", verify=True)
+    except ValueError as e:
+        control = str(e)
+    else:
+        raise AssertionError("serve_tier: a flipped payload byte passed verify")
+    cold = []
+    for _ in range(SERVE_TIER_COLD_REPS):
+        t0 = time.perf_counter()
+        f, _ = load_store_frontier(store_path)
+        f.best(scenarios.get(MAIN_PATH_SCENARIO))
+        cold.append((time.perf_counter() - t0) * 1e3)
+    out.update(records=info["records"], frontier=header["count"],
+               load_verified_ms=load_ms[True], load_unverified_ms=load_ms[False],
+               cold_reload_ms=float(np.median(cold)), control=control)
+    print(f"serve_tier: {info['records']} records of the runtime phase's serial store, "
+          f"frontier {header['count']}: snapshot built in {out['build_ms']:.3f} ms (two "
+          f"builds bitwise equal), loaded in {load_ms[True]:.3f} ms verified / "
+          f"{load_ms[False]:.3f} ms unverified, records equal to the store's; cold JSONL "
+          f"reload + one query {out['cold_reload_ms']:.3f} ms (median of "
+          f"{SERVE_TIER_COLD_REPS}); a flipped payload byte fails verify  [{card}]")
+
+    # 2. serve: every answer against brute force, no evaluation, no launch
+    server = FrontierServer(frontier)
+    records = server.records()
+    pool, queries = _serve_workload(records)
+    want_best = {id(sc): _dumps(brute_force_best(records, sc)) for sc in pool}
+    torch.cuda.synchronize()
+    reset_counts()
+    got = [None] * len(queries)
+    lat_ns = np.empty(len(queries))
+    t_all = time.perf_counter()
+    for i, sc in enumerate(queries):
+        t0 = time.perf_counter_ns()
+        got[i] = server.best(sc)
+        lat_ns[i] = time.perf_counter_ns() - t0
+    wall = time.perf_counter() - t_all
+    launched = sum(launch_counts().values())
+    wrong = sum(_dumps(g) != want_best[id(sc)] for g, sc in zip(got, queries))
+    if wrong or server.stats.evaluations != 0 or launched != 0:
+        raise AssertionError(f"serve_tier: {wrong} answers differ from brute force, "
+                             f"{server.stats.evaluations} evaluations, {launched} launches")
+    out.update(queries=len(queries), distinct=len(pool), qps=len(queries) / wall,
+               p50_us=float(np.percentile(lat_ns, 50) / 1e3),
+               p99_us=float(np.percentile(lat_ns, 99) / 1e3),
+               cache_hit_rate=server.stats.cache_hit_rate, stats=server.stats.as_dict())
+    print(f"serve_tier: {len(queries)} queries ({len(pool)} distinct: "
+          f"{len(scenarios.names())} registered, the {RUNTIME_PRESET} preset, "
+          f"{SERVE_TIER_ADHOC} ad-hoc; x{SERVE_TIER_REPEATS}, shuffled) all equal to "
+          f"brute_force_best; evaluations 0, 0 kernel launches; warm p50 "
+          f"{out['p50_us']:.3f} us, p99 {out['p99_us']:.3f} us, {out['qps']:.1f} queries/s, "
+          f"cache hit rate {out['cache_hit_rate']:.4f}  [{card}]")
+
+    # 3. admit two uncovered envelopes at once; their searches train on the card
+    least = min(r["latency_ms"] for r in records)
+    envelopes = [scenarios.Scenario(name=f"admit-{f}x", latency_target_ms=f * least)
+                 for f in SERVE_TIER_TARGETS]
+    acc = TrainedAccuracy(**SERVE_TIER_TRAIN, device=DEV)
+    acc.prepare()  # K1 is built here, never in an admission thread
+    cfg = dataclasses.replace(SERVE_TIER_ADMISSION, device=DEV)
+    space = nas.s1_mobilenetv2()
+    with _recorded_admissions() as runs:
+        adm_server = FrontierServer(snap.frontier())
+        store = DurableRecordStore(store_path)
+        ctl = AdmissionController(adm_server, space, acc, cfg, store=store)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        first = [ctl.query(sc) for sc in envelopes]
+        for a in first:
+            if a.status != "searching":
+                raise AssertionError(f"serve_tier: {a.scenario.name} was {a.status}, "
+                                     f"not admitted")
+            a.future.result()
+        torch.cuda.synchronize()
+        adm_wall = time.perf_counter() - t0
+        launches = ibn_conv.LAUNCHES
+        again = [ctl.query(sc) for sc in envelopes]
+        ctl.close()
+        store.close()
+        if ctl.admitted != 2 or ctl.failed != 0:
+            raise AssertionError(f"serve_tier: {ctl.admitted} admissions, {ctl.failed} "
+                                 f"failed, after re-asking")
+        if launches == 0 or adm_server.stats.folds < 1:
+            raise AssertionError(f"serve_tier: {launches} launches, "
+                                 f"{adm_server.stats.folds} folds")
+        folded = adm_server.records()
+        for a in again:
+            if a.status not in ("served", "exhausted"):
+                raise AssertionError(f"serve_tier: re-asking {a.scenario.name}: {a.status}")
+            if _dumps(a.answer["best"]) != _dumps(brute_force_best(folded, a.scenario)):
+                raise AssertionError(f"serve_tier: {a.scenario.name}'s answer after the "
+                                     f"fold is not brute force's")
+        together = {r["job"]: r for r in runs}
+        shared = _store_by_key(store_path)
+
+        # each search alone, into a store of its own, so that it trains
+        lone = {}
+        for sc in envelopes:
+            lone_store = DurableRecordStore(root / f"lone-{sc.name}.jsonl")
+            lone_ctl = AdmissionController(FrontierServer(snap.frontier()), space,
+                                           dataclasses.replace(acc), cfg, store=lone_store)
+            reset_counts()
+            lone_ctl.query(sc, wait=True)
+            torch.cuda.synchronize()
+            lone_ctl.close()
+            lone_store.close()
+            run = runs[-1]
+            if run["job"] != f"sweep.{sc.name}" or run["status"] != "done" or lone_ctl.failed:
+                raise AssertionError(f"serve_tier: the lone run of {sc.name} failed")
+            if together[run["job"]]["history"] != run["history"]:
+                raise AssertionError(f"serve_tier: {sc.name}'s admitted search is not "
+                                     f"bitwise its lone run")
+            mine = _store_by_key(root / f"lone-{sc.name}.jsonl")
+            if any(shared.get(k) != raw for k, raw in mine.items()):
+                raise AssertionError(f"serve_tier: the shared store's records of "
+                                     f"{sc.name}'s candidates are not its lone run's")
+            lone[sc.name] = {"launches": ibn_conv.LAUNCHES, "trained": run["trained"],
+                             "wall_s": run["wall_s"], "records": len(mine)}
+    admissions = []
+    for sc, a in zip(envelopes, again):
+        r = together[f"sweep.{sc.name}"]
+        admissions.append({"scenario": sc.name, "target_ms": sc.latency_target_ms,
+                           "status": a.status, "wall_s": r["wall_s"],
+                           "trained": r["trained"], "feasible": a.answer["feasible"],
+                           "lone": lone[sc.name]})
+        print(f"serve_tier: admitted {sc.name} (lat <= {sc.latency_target_ms:.6f} ms, the "
+              f"frontier's least {least:.6f}): {a.status} after the fold, search wall "
+              f"{r['wall_s']:.2f} s, {r['trained']} candidates trained (alone: "
+              f"{lone[sc.name]['trained']} in {lone[sc.name]['wall_s']:.2f} s, "
+              f"{lone[sc.name]['launches']} K1 launches), history and store records "
+              f"bitwise its lone run's; answer feasible={a.answer['feasible']}  [{card}]")
+    out.update(admissions=admissions, launches=launches, admission_wall_s=adm_wall,
+               folds=adm_server.stats.folds, folded_frontier=len(folded))
+    print(f"serve_tier: 2 searches admitted at once (budget {cfg.budget_samples} samples, "
+          f"batch {cfg.batch}, {cfg.controller} on {DEV}, TrainedAccuracy"
+          f"({SERVE_TIER_TRAIN}) on {DEV}): wall {adm_wall:.2f} s, {launches} ibn_pointwise "
+          f"launches, {adm_server.stats.folds} folds, frontier {header['count']} -> "
+          f"{len(folded)}; re-asking admits nothing  [{card}]")
+    return out
 
 
 def profile_phase(card: str) -> dict:
@@ -2956,7 +3226,12 @@ def main() -> int:
     kern = timed("kernel", kernel_phase)
     model = timed("model", model_phase)
     search = timed("search", search_phase)
-    runtime = timed("runtime", runtime_phase)
+    tier_root = Path(tempfile.mkdtemp(prefix="chip-smoke-serve-tier-"))
+    try:
+        runtime = timed("runtime", lambda c: runtime_phase(c, tier_root / "store.jsonl"))
+        serve_tier = timed("serve_tier", lambda c: serve_tier_phase(c, tier_root))
+    finally:
+        shutil.rmtree(tier_root, ignore_errors=True)
     prof = timed("profile", profile_phase)
     cost = timed("costmodel", costmodel_phase)
     one = timed("oneshot", lambda c: oneshot_phase(c, cost["model"]))
@@ -2982,10 +3257,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ibn_pointwise.cu",
         "replaces": "src/repro/kernels/ibn_conv.py:49",
-        "launches": search["launches"] + runtime["launches"],
+        "launches": search["launches"] + runtime["launches"] + serve_tier["launches"],
         "search_launches": search["launches"],
         "runtime_launches": {"parent": runtime["parent_launches"],
                              "workers": runtime["worker_launches"]},
+        "serve_tier_launches": serve_tier["launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -3079,7 +3355,7 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "kernel": kern, "model": model, "search": search,
-             "runtime": runtime,
+             "runtime": runtime, "serve_tier": serve_tier,
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,

@@ -22,8 +22,10 @@ appending to its own single-writer store segment (log shipping; merged
 back on return, retired by ``--compact``), and ``--devices-per-worker D``
 to give each worker D cards of its own. ``--budget-samples`` /
 ``--deadline-s`` bound the run, checkpointing everything in flight when
-the budget expires (exit code 3: resumable). ``--snapshot`` needs the serve
-tier, which the port does not have yet, and is refused. Shared flags live
+the budget expires (exit code 3: resumable). ``--snapshot PATH`` compacts the
+store's frontier into a serve-tier snapshot artifact after a run that was not
+interrupted (``repro_torch.serve.snapshot_store``; it needs ``--store``),
+which ``scripts/torch_runtime_serve.py --snapshot`` serves. Shared flags live
 in ``repro_torch.runtime.cli``.
 
 Process mode self-heals: a crashed or hung worker (``--job-deadline-s``) is
@@ -46,6 +48,8 @@ rules out, and prints the per-stage prune counters).
   PYTHONPATH=src python scripts/torch_sweep.py --scenarios lat-0.3ms,edge-sku-nano
   PYTHONPATH=src python scripts/torch_sweep.py --quick --store /tmp/s.jsonl
   PYTHONPATH=src python scripts/torch_sweep.py --quick --store /tmp/s.jsonl --resume
+  PYTHONPATH=src python scripts/torch_sweep.py --quick --store /tmp/s.jsonl \\
+      --snapshot /tmp/s.snap
   PYTHONPATH=src python scripts/torch_sweep.py --quick --store /tmp/s.jsonl \\
       --workers 4 --processes
   PYTHONPATH=src python scripts/torch_sweep.py --grid 24 --transfer --quick \\
@@ -278,9 +282,8 @@ def build_accuracy(args):
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.snapshot:
-        ap.error("--snapshot needs the serve tier, which the port does not "
-                 "have yet")
+    if args.snapshot and not args.store:
+        ap.error("--snapshot needs --store (the snapshot compacts its log)")
     if args.processes and not args.workers:
         ap.error("--processes needs --workers N")
 
@@ -399,6 +402,11 @@ def main(argv=None) -> None:
                 f"store: {len(store)} records in {args.store} "
                 f"(loaded {store.loaded}, appended {store.appended})"
             )
+            if args.snapshot and not interrupted:
+                from repro_torch.serve import snapshot_store
+
+                header, _info = snapshot_store(args.store, args.snapshot)
+                print(f"snapshot: frontier {header['count']} -> {args.snapshot}")
 
     if tracer is not None:
         extra: dict = {}

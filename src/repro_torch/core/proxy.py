@@ -26,8 +26,12 @@ Two paths, both implemented (DESIGN.md §2):
   SGD step. On the card it trains under ``CUDNN_FLAGS`` (TF32 off, cuDNN's
   deterministic algorithms) with matmul TF32 off, whatever the process set,
   so a spec's accuracy is the same in every process: the sweep's process
-  workers then reproduce the serial run bitwise. ``prepare`` builds the
-  kernel before a process pool spawns.
+  workers then reproduce the serial run bitwise. The flags are the
+  process's, not the thread's, so ``CARD_FLAGS`` holds them while any
+  thread trains on the card and gives the process its own back only when
+  the last one leaves: threads that train at once (an admission pool, a
+  thread-mode sweep) each get what they get alone. ``prepare`` builds the
+  kernel before a process pool spawns or a thread pool starts.
 
 * ``CachedAccuracy`` — a memoizing wrapper for either signal, keyed on the
   (frozen, hashable) ``ConvNetSpec``, with FIFO eviction at the size cap
@@ -42,8 +46,10 @@ copies, ``TrainedAccuracy`` is torch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +64,56 @@ from repro_torch.models import convnets as C
 #: doc); None leaves the process's own
 CUDNN_FLAGS = {"enabled": True, "benchmark": False, "deterministic": True,
                "allow_tf32": False}
+
+
+class FlagHold:
+    """Holds process-global flags for as long as any thread is inside
+    ``held``: the first thread in saves the process's own (``read()``) and
+    sets the given ones (``write(flags)``), the last one out writes the
+    saved ones back. Threads in between find the flags set and leave them."""
+
+    def __init__(self, read, write):
+        self._read = read
+        self._write = write
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def held(self, flags: dict):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._read()
+                self._write(flags)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._write(self._saved)
+                    self._saved = None
+
+
+def _read_card_flags() -> dict:
+    cudnn = torch.backends.cudnn
+    return {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "enabled": cudnn.enabled, "benchmark": cudnn.benchmark,
+            "deterministic": cudnn.deterministic, "allow_tf32": cudnn.allow_tf32}
+
+
+def _write_card_flags(flags: dict) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul_allow_tf32"]
+    cudnn = torch.backends.cudnn
+    cudnn.enabled = flags["enabled"]
+    cudnn.benchmark = flags["benchmark"]
+    cudnn.deterministic = flags["deterministic"]
+    cudnn.allow_tf32 = flags["allow_tf32"]
+
+
+#: the training flags of every thread that trains on a card (module doc)
+CARD_FLAGS = FlagHold(_read_card_flags, _write_card_flags)
 
 # Table-3-calibrated constants (see module docstring)
 _A, _B, _G = 80.37137624, 2.57339702, 0.83920754
@@ -256,13 +312,8 @@ class TrainedAccuracy:
     def __call__(self, spec: C.ConvNetSpec) -> float:
         if torch.device(self.device).type != "cuda" or CUDNN_FLAGS is None:
             return self._train(spec)
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-                return self._train(spec)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
+        with CARD_FLAGS.held({"matmul_allow_tf32": False, **CUDNN_FLAGS}):
+            return self._train(spec)
 
     def _train(self, spec: C.ConvNetSpec) -> float:
         spec = dataclasses.replace(

@@ -9,7 +9,8 @@ limit must see) against the port's CPU step, and the
 oneshot supernet (ibn_pointwise) and the learned cost model against the
 port's CPU run, the pod mesh search with its PPO updates on the card
 against the same search on the CPU, and a sweep whose spawned workers train
-their candidates on the card against the serial sweep. Every test here carries the ``cuda`` marker
+their candidates on the card against the serial sweep, and two threads
+training at once on the card against each training alone. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -931,3 +932,69 @@ def test_sweep_cli_trains_on_card_in_processes_and_resumes(tmp_path, capsys):
 
     assert table(again) == table(first)
     assert "appended 0)" in again
+
+
+@pytest.mark.cuda
+def test_concurrent_trainings_on_card_are_bitwise_the_lone_ones(monkeypatch):
+    """Two threads train two candidates on the card at once, the shorter
+    training leaving while the longer one still runs (as two admitted
+    searches or a thread-mode sweep do): each candidate ends with the
+    parameters and accuracy it gets trained alone, every step of both ran
+    under the training flags (``proxy.CARD_FLAGS``: cuDNN deterministic,
+    TF32 off), and the process's own flags come back after both."""
+    _need_card()
+    import hashlib
+    import threading
+    import time
+
+    from repro_torch.core import nas, proxy
+
+    space = nas.s1_mobilenetv2()
+    rng = np.random.default_rng(0)
+    specs = [space.decode(space.sample(rng)) for _ in range(2)]
+    accs = [proxy.TrainedAccuracy(steps=4, batch=32, device="cuda"),
+            proxy.TrainedAccuracy(steps=24, batch=32, device="cuda")]
+    accs[0].prepare()
+    real_step = proxy.train_step
+    finals, flags, stamps, done, results = {}, {}, {}, {}, {}
+
+    def recording_step(*args):
+        name = threading.current_thread().name
+        stamps.setdefault(name, []).append(time.perf_counter())
+        flags.setdefault(name, []).append(
+            (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        params, loss = real_step(*args)
+        finals[name] = params
+        return params, loss
+
+    monkeypatch.setattr(proxy, "train_step", recording_step)
+
+    def train(i, name):
+        acc = accs[i](specs[i])
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for leaf in tree_leaves(finals[name]):
+            h.update(leaf.detach().cpu().numpy().tobytes())
+        results[name] = (acc, h.hexdigest())
+        done[name] = time.perf_counter()
+
+    def run(names):
+        threads = [threading.Thread(target=train, args=(i, n), name=n) for i, n in names]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads)
+
+    before = proxy._read_card_flags()
+    run([(0, "alone-0")])
+    run([(1, "alone-1")])
+    run([(0, "both-0"), (1, "both-1")])
+    assert proxy._read_card_flags() == before
+    assert results["both-0"] == results["alone-0"]  # bitwise: accuracy, parameters
+    assert results["both-1"] == results["alone-1"]
+    held = (True, False, False, False)
+    assert all(f == held for name in ("both-0", "both-1") for f in flags[name])
+    assert len(flags["both-1"]) == 24
+    assert stamps["both-1"][-1] > done["both-0"]  # the longer one trained on alone

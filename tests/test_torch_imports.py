@@ -23,11 +23,12 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its phases run only under __main__
 import runpy
-for script in sorted(pathlib.Path("scripts").glob("torch_*.py")):
+scripts = sorted(pathlib.Path("scripts").glob("torch_*.py"))
+for script in scripts:
     runpy.run_path(str(script), run_name="imported")  # main() runs only as __main__
 leaked = sorted(n for n, m in sys.modules.items()
                 if m is not None and (n == "jax" or n.startswith(("jax.", "repro."))))
-print(len(names), leaked)
+print(len(names), len(scripts), leaked)
 """
 
 
@@ -36,8 +37,11 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 76  # every module the port has; one that drops out shows
+    n_modules, n_scripts, leaked = out.stdout.split(maxsplit=2)
+    # every module and script the port has (the serve tier's 4 modules and
+    # torch_runtime_serve.py included); one that drops out shows
+    assert int(n_modules) >= 80
+    assert int(n_scripts) >= 3
     assert leaked.strip() == "[]"
 
 

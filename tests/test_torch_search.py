@@ -3,6 +3,10 @@
 state), the evolution search (bitwise), and a CPU run of the joint search
 with real proxy training. Inputs come from numpy seeds."""
 import inspect
+import random
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -129,9 +133,114 @@ def test_joint_search_with_trained_accuracy_on_cpu():
     assert res.best_record is not None and res.best_record["valid"]
 
 
+def _stand_in_flags():
+    """A ``FlagHold`` over a dict standing in for the process's flags, and
+    the log of every write."""
+    state = {"deterministic": False}
+    writes = []
+
+    def write(flags):
+        writes.append(dict(flags))
+        state.update(flags)
+
+    return port_proxy.FlagHold(lambda: dict(state), write), state, writes
+
+
+def test_flag_hold_restores_only_at_the_last_exit():
+    hold, state, writes = _stand_in_flags()
+    with hold.held({"deterministic": True}):
+        with hold.held({"deterministic": True}):  # nested: finds them set
+            assert state == {"deterministic": True}
+        assert state == {"deterministic": True}
+    assert state == {"deterministic": False}
+    assert writes == [{"deterministic": True}, {"deterministic": False}]
+    with pytest.raises(RuntimeError):
+        with hold.held({"deterministic": True}):
+            raise RuntimeError("training failed")
+    assert state == {"deterministic": False}
+
+
+def test_flag_hold_keeps_the_flags_while_a_second_thread_trains():
+    """Thread a enters, thread b enters, a leaves while b is still inside:
+    b still sees the flags, and they come back only when b leaves."""
+    hold, state, writes = _stand_in_flags()
+    a_in, b_in, a_out, b_may_leave = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def a():
+        with hold.held({"deterministic": True}):
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def b():
+        a_in.wait(10)
+        with hold.held({"deterministic": True}):
+            b_in.set()
+            a_out.wait(10)
+            seen["after_a_left"] = dict(state)
+            b_may_leave.wait(10)
+
+    threads = [threading.Thread(target=f) for f in (a, b)]
+    for t in threads:
+        t.start()
+    a_out.wait(10)
+    b_may_leave.set()
+    for t in threads:
+        t.join(10)
+    assert not any(t.is_alive() for t in threads)
+    assert seen["after_a_left"] == {"deterministic": True}
+    assert state == {"deterministic": False}
+    assert writes == [{"deterministic": True}, {"deterministic": False}]
+
+
+def test_flag_hold_under_many_threads():
+    """16 threads enter and leave at random under a short switch interval:
+    the flags are set while any thread is inside, and written exactly twice
+    per busy period."""
+    hold, state, writes = _stand_in_flags()
+    bad = []
+
+    def worker(seed):
+        rng = random.Random(seed)
+        for _ in range(200):
+            with hold.held({"deterministic": True}):
+                if state != {"deterministic": True}:
+                    bad.append(dict(state))
+                if rng.random() < 0.1:
+                    time.sleep(0)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+    assert state == {"deterministic": False}
+    assert len(writes) % 2 == 0 and writes[-1] == {"deterministic": False}
+
+
+def test_trained_accuracy_on_the_cpu_leaves_the_flags(monkeypatch):
+    hold, state, writes = _stand_in_flags()
+    monkeypatch.setattr(port_proxy, "CARD_FLAGS", hold)
+    acc = port_proxy.TrainedAccuracy(steps=1, batch=4, eval_batches=1, device="cpu")
+    spec = port_nas.tiny_space().decode(port_nas.tiny_space().sample(np.random.default_rng(0)))
+    assert 0.0 <= acc(spec) <= 1.0
+    assert writes == []
+
+
 def test_entry_points_default_to_the_card():
+    from repro_torch.serve import AdmissionConfig
+
     assert port_proxy.TrainedAccuracy().device == "cuda"
     assert port_search.SearchConfig().device == "cuda"
+    assert AdmissionConfig().device == "cuda"
     device = inspect.signature(port_meshsearch.search_mesh).parameters["device"]
     assert device.default == "cuda"
 

@@ -1,8 +1,9 @@
 """``scripts/torch_sweep.py`` on the CPU: a ``--quick`` sweep of
 ``paper-use-cases`` into a durable store prints the table of the library
 call (``sweep.SweepRunner``); ``--resume`` replays it from the checkpoints,
-evaluating nothing, to the same table; and the flags the port refuses
-(``--snapshot``) are refused."""
+evaluating nothing, to the same table; ``--snapshot`` writes the serve
+tier's snapshot of the finished store; and the flags it refuses as the
+reference does are refused."""
 import importlib.util
 from pathlib import Path
 
@@ -54,10 +55,22 @@ def test_store_then_resume_print_the_library_table(tmp_path, capsys):
 
 
 def test_snapshot_and_processes_without_workers_are_refused(tmp_path, capsys):
+    """``--store S --snapshot P`` writes the artifact ``snapshot_store``
+    writes of the finished store; ``--snapshot`` without ``--store`` and
+    ``--processes`` without ``--workers`` are refused."""
+    from repro_torch.serve import snapshot_store
+
     cli = _cli()
-    for argv in (["--snapshot", str(tmp_path / "x.snap"), "--store", str(tmp_path / "s")],
-                 ["--processes"]):
+    store, snap = str(tmp_path / "s.jsonl"), tmp_path / "s.snap"
+    cli.main(["--device", "cpu", "--quick", "--scenarios", "lat-0.3ms,energy-0.7mJ",
+              "--samples", "16", "--batch", "8", "--store", store, "--snapshot", str(snap)])
+    header, _ = snapshot_store(store, tmp_path / "want.snap")
+    assert f"snapshot: frontier {header['count']} -> {snap}" in capsys.readouterr().out
+    assert snap.read_bytes() == (tmp_path / "want.snap").read_bytes()
+
+    for argv, why in ((["--snapshot", str(tmp_path / "x.snap")], "--snapshot needs --store"),
+                      (["--processes"], "--processes needs --workers")):
         with pytest.raises(SystemExit) as err:
             cli.main(["--device", "cpu", "--quick", *argv])
         assert err.value.code == 2
-    assert "serve tier" in capsys.readouterr().err
+        assert why in capsys.readouterr().err
