@@ -31,7 +31,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                controller on the card;
 5. runtime   — the sweep of the joint search over the constraint-modes
                preset (4 scenarios x 16 samples, PPO on the card,
-               ``TrainedAccuracy(steps=40, batch=64)`` on the card: every 1×1
+               ``TrainedAccuracy(steps=20, batch=64)`` on the card: every 1×1
                convolution on ``ibn_pointwise``) through the durable runtime
                (``SearchRuntime.at``: a ``DurableRecordStore`` and a
                ``Checkpointer``): serially in this process, then with
@@ -168,10 +168,33 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                shape-only init) against the full-width weights' element
                count, and the train phase counts its model FLOPs with
                ``launch.roofline.model_flops``;
-19. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+19. parallel — one world of 8 spawned ranks (on one card every rank
+               computes on cuda:0 and the collectives go over gloo with
+               every CUDA tensor staged through host memory,
+               ``parallel.staging``; NCCL with a card a rank) over (2, 4)
+               and (1, 8) (data, model), (8,) stage and (4, 2): qwen3-1.7B
+               cut to 4 layers at full width, fp32, 8 x 512 tokens, AdamW,
+               TP 4 and FSDP on (2, 4): its sharded gradients against the
+               unsharded ones computed first in this process, its sharded
+               AdamW update against the unsharded optimizer's on the same
+               clipped gradients, a train step timed, K2 launched on every
+               rank alike, and a planted fault (layer 0's attention output
+               without its model-axis sum) the gradient limit must fail;
+               qwen2-moe-a2.7b cut to 2 layers, fp32 forward: EP on (2, 4)
+               against the unsharded forward of each data shard's rows, TPE
+               on (1, 8) against the whole batch's, K4 on every rank, and a
+               planted fault (each EP rank running another rank's experts)
+               that must fail; ``pipeline_apply`` over 8 stages against the
+               sequential product; ``compressed_psum`` on the card bitwise
+               against the same ranks on the CPU; the qwen3 smoke config's
+               sharded checkpoint restored onto (4, 2) and one device,
+               bitwise. It prints the backend, the collectives and bytes
+               staged, the walls and per-rank peak memory (not a scaling
+               figure: the ranks time-share one card);
+20. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Each main path (search, runtime, serve_tier and oneshot for ibn_pointwise; serve, serve_ssm,
-serve_moe and train for flash_attention, ssd_scan and gmm; mesh, which
+serve_moe, train and parallel for flash_attention, ssd_scan and gmm; mesh, which
 must launch none of them) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
@@ -200,9 +223,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.common import tree_leaves, tree_map, tree_size  # noqa: E402
+from repro_torch.common import (tree_leaves, tree_map, tree_paths, tree_size,  # noqa: E402
+                                tree_unflatten_paths)
 from repro_torch.config import SHAPES as LLM_SHAPES  # noqa: E402
-from repro_torch.config import RunConfig, ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.config import MeshConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.core import (costmodel, has, meshsearch, nas, oneshot, scenarios,  # noqa: E402
                               simulator, sweep)
 from repro_torch.core.engine import split_key  # noqa: E402
@@ -218,6 +242,7 @@ from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
+from repro_torch.parallel import sharding, staging  # noqa: E402
 from repro_torch.runtime import FAULTS_ENV, Budget, DurableRecordStore, SearchRuntime  # noqa: E402
 from repro_torch.serve import (AdmissionConfig, AdmissionController,  # noqa: E402
                                FrontierServer, brute_force_best, load_snapshot,
@@ -339,7 +364,9 @@ KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
 # sweep's 4 x 16 samples
 RUNTIME_PRESET = "constraint-modes"
 RUNTIME_SEARCH = SearchConfig(samples=16, batch=8, seed=0)
-RUNTIME_TRAIN = {"steps": 40, "batch": 64}
+# half the search phase's 40 steps a candidate: the script's budget holds
+# the parallel phase too (the sweeps hold their bitwise checks at any depth)
+RUNTIME_TRAIN = {"steps": 20, "batch": 64}
 RUNTIME_WORKERS = 2
 RUNTIME_FAULT = "crash:sweep.lat-0.5ms:0:1"
 RUNTIME_BUDGET = 24
@@ -3191,6 +3218,470 @@ def mesh_phase(card: str) -> dict:
     return out
 
 
+# the parallel phase: one world of 8 ranks (on one card, over gloo with CUDA
+# tensors staged through host memory), qwen3-1.7B cut to 4 layers and
+# qwen2-moe-a2.7b to 2 at full width, 8 x 512 tokens, fp32: the limits of the
+# train phase's card-vs-CPU check (loss relative, each gradient leaf over its
+# own max, an update beyond one fp32 step) and of tests/test_sharded.py's
+# pipeline
+PARALLEL_RANKS = 8
+PARALLEL_BATCH, PARALLEL_SEQ = 8, 512
+PARALLEL_LAYERS = {SERVE_ARCH: 4, MOE_ARCH: 2}
+PARALLEL_LOSS_TOL, PARALLEL_GRAD_TOL, PARALLEL_MOE_TOL = 1e-5, 1e-4, 1e-4
+# pipeline: stages (the mesh), microbatches, rows each, width; absolute limit
+PARALLEL_PIPE = (8, 16, 64, 2048)
+PARALLEL_PIPE_TOL = 1e-5
+PARALLEL_PSUM = (8, (1024, 1024))  # steps with error feedback, each rank's gradient
+PARALLEL_DEADLINE_S = 900
+
+
+def _parallel_cut(arch: str):
+    """The parallel phase's full-width cut of ``arch`` in fp32, attention on
+    the kernel."""
+    return configs.get(arch).scaled(num_layers=PARALLEL_LAYERS[arch], attn_impl="flash_pallas",
+                                    compute_dtype="float32")
+
+
+def _parallel_run(cfg) -> RunConfig:
+    return _train_run(cfg, PARALLEL_BATCH, PARALLEL_SEQ).replace(mesh=MeshConfig())
+
+
+def _parallel_batch(cfg, device) -> dict:
+    host = LMStream(cfg.vocab_size, PARALLEL_SEQ, PARALLEL_BATCH, seed=0).batch_at(0)
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def _pipe_inputs(device) -> tuple[torch.Tensor, torch.Tensor]:
+    s, m, rows, width = PARALLEL_PIPE
+    gen = torch.Generator(device=device).manual_seed(7)
+    ws = torch.randn((s, width, width), generator=gen, device=device) / math.sqrt(width)
+    xs = torch.randn((m, rows, width), generator=gen, device=device)
+    return ws, xs
+
+
+def _psum_grads(rank: int) -> torch.Tensor:
+    _, shape = PARALLEL_PSUM
+    gen = torch.Generator().manual_seed(100 + rank)
+    return torch.randn(shape, generator=gen)
+
+
+def _local_piece(d, whole: torch.Tensor) -> torch.Tensor:
+    """The slice of ``whole`` that the DTensor ``d`` holds on this rank."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, off = compute_local_shape_and_global_offset(whole.shape, d.device_mesh, d.placements)
+    return whole[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+
+
+def _local_errs(got, want: dict, scales: dict) -> dict:
+    """Per leaf of the DTensor tree ``got``: max |local shard - the same
+    slice of the whole leaf ``want[path]``| over that whole leaf's max
+    |value| (``scales[path]``)."""
+    out = {}
+    for path, g in tree_paths(got):
+        local = g.to_local()
+        piece = _local_piece(g, want[path]).to(local.device)
+        diff = (local.float() - piece.float()).abs().max().item() if piece.numel() else 0.0
+        scale = scales[path]
+        out[path] = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+    return out
+
+
+def _drop_model_sum(h):
+    """The planted fault: a row-parallel product's output, pending its sum
+    over the model axis, taken as if already summed (each rank keeps only
+    its own heads' share)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not any(p.is_partial() for p in h.placements):
+        raise AssertionError(f"the attention output is not a pending sum: {h.placements}")
+    pl = [Replicate() if p.is_partial() else p for p in h.placements]
+    return DTensor.from_local(h.to_local(), h.device_mesh, pl, run_check=False)
+
+
+@contextlib.contextmanager
+def _parallel_fault(fault: str):
+    """``model_sum_dropped``: layer 0's attention output (``wo``, a
+    row-parallel product) loses its model-axis sum; ``e_start_shifted``:
+    every EP rank runs the next rank's experts under its own ids."""
+    from repro_torch.models import layers
+
+    if fault == "model_sum_dropped":
+        orig, calls = layers.attention_block, []
+
+        def faulty(*args, **kwargs):
+            out, cache = orig(*args, **kwargs)
+            calls.append(1)
+            return (_drop_model_sum(out) if len(calls) == 1 else out), cache
+
+        layers.attention_block = faulty
+        try:
+            yield
+        finally:
+            layers.attention_block = orig
+    else:
+        orig = moe._moe_ffn_local
+
+        def shifted(x3d, wr, wg, wu, wo, cfg, e_start, e_count):
+            return orig(x3d, wr, wg, wu, wo, cfg, (e_start + e_count) % cfg.num_experts, e_count)
+
+        moe._moe_ffn_local = shifted
+        try:
+            yield
+        finally:
+            moe._moe_ffn_local = orig
+
+
+def _sync_ms(fn) -> tuple:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _parallel_dense(pc, shared: dict) -> dict:
+    """qwen3's sharded gradients against the parent's unsharded ones, the
+    sharded AdamW update against the unsharded optimizer's on the same
+    gradients (as the train phase holds the card's update against the
+    CPU's), one timed train step, and the planted fault."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = _parallel_cut(SERVE_ARCH)
+    run = _parallel_run(cfg)
+    step, sspecs, bspecs = steps.make_train_step(run, pc)
+    opt = make_optimizer(run.train)
+    batch = sharding.distribute_tree(shared["batch"], bspecs, pc.mesh)
+    want = torch.load(Path(shared["refs"]) / "grads.pt", mmap=True)
+    flat = torch.load(Path(shared["refs"]) / "params.pt", mmap=True)
+    abstract = steps.abstract_params(cfg)
+    whole = tree_unflatten_paths(abstract, [flat[p] for p, _ in tree_paths(abstract)])
+    params = sharding.distribute_tree(whole, sspecs["params"], pc.mesh)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    comm = CommDebugMode()
+    with comm:
+        (loss, _, grads), grad_ms = _sync_ms(
+            lambda: steps.value_and_grad(params, batch, run, pc))
+    res = {"loss": loss.full_tensor().item(), "grad_ms": grad_ms,
+           "grad_errs": _local_errs(grads, want, shared["grad_scales"]),
+           "collectives": {str(k).split(".")[-1]: v for k, v in
+                           comm.get_comm_counts().items()}}
+    # the sharded update; the optimizer clips ``grads`` in place, so each
+    # leaf's reference below steps from the same clipped gradient
+    new, _, _ = opt.step(tree_map(torch.clone, params), grads, opt.init(params))
+    res["update_err"] = _sharded_update_err(new, grads, whole, run)
+    del new, grads
+    state = {"params": params, "opt": opt.init(params)}
+    (state, metrics), res["step_ms"] = _sync_ms(lambda: step(state, batch))
+    res["step_loss"] = float(metrics["loss"])
+    res["launches"] = launch_counts()["flash_attention"]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    with _parallel_fault("model_sum_dropped"):
+        _, _, bad = steps.value_and_grad(
+            sharding.distribute_tree(whole, sspecs["params"], pc.mesh), batch, run, pc)
+    res["fault_grad_err"] = max(_local_errs(bad, want, shared["grad_scales"]).values())
+    return res
+
+
+def _sharded_update_err(new, clipped, old, run) -> float:
+    """The sharded AdamW result ``new`` against the unsharded optimizer's
+    step of the same slices of the whole leaves ``old`` from the same
+    clipped gradients (AdamW is elementwise once the gradients are
+    clipped), beyond one fp32 step (``_update_errs``): each rank checks its
+    own shards. The reference clips nothing more (an infinite clip)."""
+    noclip = run.replace(train=dataclasses.replace(run.train, grad_clip=math.inf))
+    worst = 0.0
+    for (_, n), (_, g), (_, o) in zip(tree_paths(new), tree_paths(clipped), tree_paths(old)):
+        piece = _local_piece(n, o).to(n.to_local().device)
+        want = _stepped({"p": piece}, {"p": g.to_local().clone()}, noclip)["p"]
+        worst = max(worst, _update_errs([n.to_local()], [want.cpu()], [piece.cpu()])[0])
+    return worst
+
+
+def _parallel_moe(pc_ep, pc_tpe, shared: dict) -> dict:
+    """qwen2-moe's EP forward per data shard and TPE forward on the whole
+    batch against the parent's unsharded forwards."""
+    cfg = _parallel_cut(MOE_ARCH)
+    res = {}
+    for scheme, pc in (("ep", pc_ep), ("tpe", pc_tpe)):
+        assert moe.ep_scheme(cfg, pc) == scheme
+        specs = sharding.param_specs(shared["moe_params"], cfg, pc, MeshConfig())
+        params = sharding.distribute_tree(shared["moe_params"], specs, pc.mesh)
+        reset_counts()
+        with torch.no_grad():
+            (logits, aux), ms = _sync_ms(
+                lambda: api.forward(params, {"tokens": shared["moe_tokens"]}, cfg, pc))
+        res[f"{scheme}_launches"] = launch_counts()["gmm"]
+        res[f"{scheme}_attention_launches"] = launch_counts()["flash_attention"]
+        res[f"{scheme}_ms"] = ms
+        want = torch.load(Path(shared["refs"]) / f"{scheme}_logits.pt", mmap=True)
+        scale = shared["logit_scales"][scheme]
+        res[f"{scheme}_err"] = _logit_err(logits, want, scale)
+        res[f"{scheme}_aux"] = aux.full_tensor().item()
+        if scheme == "ep":
+            with _parallel_fault("e_start_shifted"), torch.no_grad():
+                bad, _ = api.forward(params, {"tokens": shared["moe_tokens"]}, cfg, pc)
+            res["fault_err"] = _logit_err(bad, want, scale)
+        del params, logits
+    return res
+
+
+def _logit_err(logits, want, scale: float) -> float:
+    """max |local logits - the same slice of want| over max |want|
+    (``scale``; want stacked per data shard for EP: (shards, B/shards, S,
+    V))."""
+    local = logits.to_local()
+    piece = _local_piece(logits, want.reshape(logits.shape)).to(local.device)
+    return (local - piece).abs().max().item() / scale
+
+
+def _parallel_pipeline(mesh8, shared: dict) -> dict:
+    from repro_torch.parallel import pipeline
+
+    sid = mesh8.get_local_rank("stage")
+    ws, xs = shared["pipe_ws"], shared["pipe_xs"]
+    mine = {"w": ws[sid:sid + 1]}  # this stage's weights only
+    out, ms = _sync_ms(lambda: pipeline.pipeline_apply(
+        lambda p, x: torch.tanh(x @ p["w"]), mine, xs, mesh8))
+    return {"err": (out - shared["pipe_want"]).abs().max().item(), "ms": ms}
+
+
+def _parallel_psum(mesh8, cpu8) -> dict:
+    from repro_torch.parallel.compression import compressed_psum
+
+    rank = mesh8.get_local_rank("stage")
+    g = _psum_grads(rank)
+    steps_, _ = PARALLEL_PSUM
+    same, err_card, err_cpu = True, None, None
+    for t in range(steps_):
+        card, err_card = compressed_psum({"g": (g * (t + 1)).to(DEV)},
+                                         mesh8.get_group("stage"), err_card)
+        host, err_cpu = compressed_psum({"g": g * (t + 1)}, cpu8.get_group("stage"), err_cpu)
+        same &= torch.equal(card["g"].cpu(), host["g"])
+        same &= torch.equal(err_card["g"].cpu(), err_cpu["g"])
+    return {"bitwise": bool(same)}
+
+
+def _parallel_checkpoint(pc, mesh42, root: str) -> dict:
+    """The qwen3 smoke config after one sharded step, saved and restored
+    onto (4, 2) and onto one device: the largest difference from the state
+    (0 when bitwise)."""
+    cfg = configs.smoke(SERVE_ARCH).scaled(compute_dtype="float32")
+    run = _train_run(cfg, 8, 64).replace(mesh=MeshConfig(fsdp_min_size=1))
+    step, sspecs, bspecs = steps.make_train_step(run, pc)
+    params = api.init(0, cfg, device=DEV)
+    state = sharding.distribute_tree({"params": params, "opt": make_optimizer(run.train).init(
+        params)}, sspecs, pc.mesh)
+    host = LMStream(cfg.vocab_size, 64, 8, seed=1).batch_at(0)
+    state, _ = step(state, sharding.distribute_tree(
+        {k: torch.from_numpy(v).to(DEV) for k, v in host.items()}, bspecs, pc.mesh))
+    checkpoint.save(root, 1, state)
+    want = {p: t.full_tensor() for p, t in tree_paths(state)}
+    moved, _ = checkpoint.restore(root, state,
+                                  shardings=sharding.shardings(state, sspecs, mesh42))
+    alone, _ = checkpoint.restore(root, tree_map(torch.zeros_like, tree_map(
+        lambda t: t.full_tensor(), state)))
+    diff = 0.0
+    for (p, a), (_, b) in zip(tree_paths(moved), tree_paths(alone)):
+        assert a.device_mesh is mesh42 and a.dtype == b.dtype == want[p].dtype
+        diff = max(diff, (a.full_tensor() - want[p]).abs().max().item(),
+                   (b - want[p]).abs().max().item())
+    return {"max_diff": diff}
+
+
+def _parallel_rank(rank: int, shared: dict, root: str) -> dict:
+    """One rank of the parallel phase's world (see ``parallel_phase``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.ctx import from_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh24 = make_mesh((2, 4), ("data", "model"), device=DEV)
+    mesh18 = make_mesh((1, 8), ("data", "model"), device=DEV)
+    mesh8 = make_mesh((8,), ("stage",), device=DEV)
+    mesh42 = make_mesh((4, 2), ("data", "model"), device=DEV)
+    cpu8 = init_device_mesh("cpu", (8,), mesh_dim_names=("stage",))
+    pc = from_mesh(mesh24)
+    t = time.perf_counter()
+    parts = {"dense": lambda: _parallel_dense(pc, shared),
+             "moe": lambda: _parallel_moe(pc, from_mesh(mesh18), shared),
+             "pipeline": lambda: _parallel_pipeline(mesh8, shared),
+             "psum": lambda: _parallel_psum(mesh8, cpu8),
+             "checkpoint": lambda: _parallel_checkpoint(pc, mesh42, root)}
+    res = {}
+    for name, part in parts.items():
+        res[name] = part()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"parallel rank 0: {name} done at {time.perf_counter() - t:.1f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    res["rank_s"] = time.perf_counter() - t
+    res["staged_bytes"] = dict(staging.STAGED_BYTES)
+    res["staged_calls"] = dict(staging.CALLS)
+    return res
+
+
+def parallel_phase(card: str) -> dict:
+    """One world of PARALLEL_RANKS ranks over three meshes, as the
+    reference's tests/test_sharded.py builds them over 8 host devices:
+    (2, 4) and (1, 8) (data, model) and (8,) stage. Every reference result
+    is computed here first, unsharded on the card, and handed to the ranks
+    by CUDA IPC with the parameters they slice (nothing is copied whole per
+    rank). Each rank holds its own shards against the same slices of it:
+
+    * qwen3-1.7B at full width cut to 4 layers, fp32, 8 x 512 tokens,
+      AdamW, on (2, 4) (TP 4, FSDP on data): the first gradients per leaf
+      over that leaf's max, the loss, one train step's update beyond one
+      fp32 step, K2 launched on every rank (local heads) the same number of
+      times; a planted fault (layer 0's attention output losing its
+      model-axis sum) must fail the gradient limit;
+    * qwen2-moe-a2.7b at full width cut to 2 layers, fp32 forward over the
+      same tokens: EP on (2, 4) (15 experts a rank) against the unsharded
+      forward of each data shard's rows, TPE on (1, 8) (60 experts, F 176)
+      against the whole batch's, K4 on every rank; a planted fault (each
+      EP rank running another rank's experts) must fail;
+    * ``pipeline_apply`` over 8 stages: 16 microbatches of tanh(x @ w) at
+      width 2048 against the sequential product;
+    * ``compressed_psum`` over 8 ranks, 8 steps with error feedback, the
+      card's run bitwise the CPU's (a CPU mesh over the same world);
+    * the qwen3 smoke config after one sharded step saved and restored
+      onto (4, 2) and onto one device, bitwise.
+
+    With fewer cards than ranks every rank computes on cuda:0 and the
+    collectives go over gloo (NCCL takes no two ranks on one device): the
+    walls time-share one card and cross host memory, so they are no scaling
+    figure."""
+    from repro_torch.launch.mesh import backend_for, run_world
+
+    t0 = time.perf_counter()
+    backend = backend_for(PARALLEL_RANKS, DEV)
+    print(f"parallel: {PARALLEL_RANKS} ranks over {backend} on "
+          f"{min(PARALLEL_RANKS, torch.cuda.device_count())} card(s)  [{card}]")
+    cfg = _parallel_cut(SERVE_ARCH)
+    run = _parallel_run(cfg)
+    params = api.init(0, cfg, device=DEV)
+    batch = _parallel_batch(cfg, DEV)
+    reset_counts()
+    loss, _, grads = steps.value_and_grad(params, batch, run)
+    mcfg = _parallel_cut(MOE_ARCH)
+    moe_params = api.init(0, mcfg, device=DEV)
+    half = PARALLEL_BATCH // 2
+    with torch.no_grad():
+        halves = [api.forward(moe_params, {"tokens": batch["tokens"][i:i + half]}, mcfg)
+                  for i in (0, half)]
+        ep_want = torch.stack([logits for logits, _ in halves])
+        ep_auxes = [aux.item() for _, aux in halves]
+        del halves
+        tpe_want, tpe_aux = api.forward(moe_params, {"tokens": batch["tokens"]}, mcfg)
+    ws, xs = _pipe_inputs(DEV)
+    pipe_want = xs
+    for w in ws:
+        pipe_want = torch.tanh(pipe_want @ w)
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-parallel-"))
+    # what the ranks compare against goes to files they map and slice
+    # (each rank copies only its own slices to the card); what they build
+    # from goes by CUDA IPC
+    refs = {"grads": {p: g.cpu() for p, g in tree_paths(grads)},
+            "params": {p: t.cpu() for p, t in tree_paths(params)},
+            "ep_logits": ep_want.cpu(), "tpe_logits": tpe_want.cpu()}
+    for name, ref in refs.items():
+        torch.save(ref, root / f"{name}.pt")
+    shared = {"batch": batch, "refs": str(root),
+              "grad_scales": {p: g.abs().max().item() for p, g in tree_paths(grads)},
+              "logit_scales": {"ep": ep_want.abs().max().item(),
+                               "tpe": tpe_want.abs().max().item()},
+              "moe_params": moe_params, "moe_tokens": batch["tokens"],
+              "pipe_ws": ws, "pipe_xs": xs, "pipe_want": pipe_want}
+    del refs, grads, params, ep_want, tpe_want
+    torch.cuda.empty_cache()  # the ranks share the card: hand back what the references cached
+    ref_s = time.perf_counter() - t0
+    print(f"parallel: references {ref_s:.1f} s; the parent holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB for the ranks  [{card}]", flush=True)
+    try:
+        ranks = run_world(_parallel_rank, PARALLEL_RANKS, DEV, shared, str(root / "ckpt"),
+                          timeout_s=PARALLEL_DEADLINE_S, threads=None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del shared, moe_params
+    torch.cuda.empty_cache()
+
+    dense = [r["dense"] for r in ranks]
+    moes = [r["moe"] for r in ranks]
+    grad_err = max(max(d["grad_errs"].values()) for d in dense)
+    update_err = max(d["update_err"] for d in dense)
+    loss_err = max(abs(d["loss"] - loss.item()) / abs(loss.item()) for d in dense)
+    fault_err = min(d["fault_grad_err"] for d in dense)
+    k2 = [d["launches"] for d in dense]
+    out = {
+        "backend": backend, "ranks": PARALLEL_RANKS, "ref_s": ref_s,
+        "loss": loss.item(), "loss_rel_err": loss_err, "grad_err": grad_err,
+        "update_err": update_err, "fault_grad_err": fault_err, "k2_launches": k2,
+        "grad_ms": [d["grad_ms"] for d in dense], "step_ms": [d["step_ms"] for d in dense],
+        "peak_gb": [d["peak_gb"] for d in dense], "collectives": dense[0]["collectives"],
+        "ep_err": max(m["ep_err"] for m in moes), "tpe_err": max(m["tpe_err"] for m in moes),
+        "ep_fault_err": min(m["fault_err"] for m in moes),
+        "ep_aux": moes[0]["ep_aux"], "ep_aux_want": float(np.mean(ep_auxes)),
+        "tpe_aux": moes[0]["tpe_aux"], "tpe_aux_want": tpe_aux.item(),
+        "k4_launches": {"ep": [m["ep_launches"] for m in moes],
+                        "tpe": [m["tpe_launches"] for m in moes]},
+        "moe_k2_launches": {"ep": [m["ep_attention_launches"] for m in moes],
+                            "tpe": [m["tpe_attention_launches"] for m in moes]},
+        "moe_ms": {"ep": [m["ep_ms"] for m in moes], "tpe": [m["tpe_ms"] for m in moes]},
+        "pipe_err": max(r["pipeline"]["err"] for r in ranks),
+        "pipe_ms": [r["pipeline"]["ms"] for r in ranks],
+        "staged_bytes": [r["staged_bytes"] for r in ranks],
+        "staged_calls": ranks[0]["staged_calls"],
+        "psum_bitwise": all(r["psum"]["bitwise"] for r in ranks),
+        "ckpt_max_diff": max(r["checkpoint"]["max_diff"] for r in ranks),
+        "rank_s": [r["rank_s"] for r in ranks],
+    }
+    staged = out["staged_bytes"][0]
+    print(f"parallel: backend {backend}; DTensor collectives on CUDA tensors in one qwen3 "
+          f"gradient pass (rank 0): {out['collectives']}; collectives on CUDA tensors staged "
+          f"through host memory over the phase (rank 0): calls {out['staged_calls']}, bytes "
+          f"{staged} ({sum(staged.values()) / 1e9:.3f} GB; ranks "
+          f"{[round(sum(b.values()) / 1e9, 3) for b in out['staged_bytes']]} GB)  [{card}]")
+    print(f"parallel qwen3-1.7B x{PARALLEL_LAYERS[SERVE_ARCH]} on (2, 4), fp32, "
+          f"{PARALLEL_BATCH} x {PARALLEL_SEQ}: loss rel err {loss_err:.3g}, grad err "
+          f"{grad_err:.3g}, update err {update_err:.3g} (limits {PARALLEL_LOSS_TOL}, "
+          f"{PARALLEL_GRAD_TOL}), planted fault {fault_err:.3g}; K2 launches per rank {k2}; "
+          f"gradient pass ms {[round(v) for v in out['grad_ms']]}, train step ms "
+          f"{[round(v) for v in out['step_ms']]}, peak GB per rank "
+          f"{[round(v, 2) for v in out['peak_gb']]}  [{card}; {PARALLEL_RANKS} ranks "
+          f"time-share one card over {backend}: not a scaling figure]")
+    print(f"parallel qwen2-moe-a2.7b x{PARALLEL_LAYERS[MOE_ARCH]}: EP (2, 4) err "
+          f"{out['ep_err']:.3g}, TPE (1, 8) err {out['tpe_err']:.3g} (limit "
+          f"{PARALLEL_MOE_TOL}), planted e_start fault {out['ep_fault_err']:.3g}; aux EP "
+          f"{out['ep_aux']:.6g} vs {out['ep_aux_want']:.6g}, TPE {out['tpe_aux']:.6g} vs "
+          f"{out['tpe_aux_want']:.6g}; K4 launches EP {out['k4_launches']['ep']}, TPE "
+          f"{out['k4_launches']['tpe']}; forward ms EP {[round(v) for v in out['moe_ms']['ep']]}"
+          f", TPE {[round(v) for v in out['moe_ms']['tpe']]}  [{card}]")
+    print(f"parallel pipeline {PARALLEL_PIPE}: err {out['pipe_err']:.3g} (limit "
+          f"{PARALLEL_PIPE_TOL}), ms {[round(v) for v in out['pipe_ms']]}; compressed_psum "
+          f"bitwise card vs CPU: {out['psum_bitwise']}; checkpoint (2, 4) -> (4, 2) and one "
+          f"device max diff {out['ckpt_max_diff']}  [{card}]")
+    assert loss_err <= PARALLEL_LOSS_TOL, loss_err
+    assert grad_err <= PARALLEL_GRAD_TOL, grad_err
+    assert update_err <= PARALLEL_GRAD_TOL, update_err
+    assert fault_err > PARALLEL_GRAD_TOL, f"the planted fault passed: {fault_err}"
+    assert len(set(k2)) == 1 and k2[0] > 0, k2
+    assert out["ep_err"] <= PARALLEL_MOE_TOL and out["tpe_err"] <= PARALLEL_MOE_TOL, out
+    assert out["ep_fault_err"] > PARALLEL_MOE_TOL, out["ep_fault_err"]
+    assert abs(out["ep_aux"] - out["ep_aux_want"]) <= 1e-5 * abs(out["ep_aux_want"])
+    assert abs(out["tpe_aux"] - out["tpe_aux_want"]) <= 1e-5 * abs(out["tpe_aux_want"])
+    assert all(n > 0 for n in out["k4_launches"]["ep"] + out["k4_launches"]["tpe"]), out
+    assert out["pipe_err"] <= PARALLEL_PIPE_TOL, out["pipe_err"]
+    assert out["psum_bitwise"], "compressed_psum on the card differs from the CPU's"
+    assert out["ckpt_max_diff"] == 0.0, out["ckpt_max_diff"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"parallel: {out['phase_s']:.1f} s (references {ref_s:.1f} s, ranks "
+          f"{max(out['rank_s']):.1f} s)  [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -3248,6 +3739,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = timed("train", train_phase)
     mesh = timed("mesh", mesh_phase)
+    torch.cuda.empty_cache()
+    par = timed("parallel", parallel_phase)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
@@ -3288,7 +3781,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88",
-        "launches": serve["path_launches"]["flash_attention"],
+        "launches": serve["path_launches"]["flash_attention"] + sum(par["k2_launches"])
+                    + sum(par["moe_k2_launches"]["ep"] + par["moe_k2_launches"]["tpe"]),
+        "serve_launches": serve["path_launches"]["flash_attention"],
+        "parallel_launches": {"qwen3 train per rank": par["k2_launches"],
+                              "moe EP per rank": par["moe_k2_launches"]["ep"],
+                              "moe TPE per rank": par["moe_k2_launches"]["tpe"]},
         "max_abs_err": attn["main"]["max_abs_err"],
         "ms": attn["main"]["ms"],
         "plain_ms": attn["main"]["plain_ms"],
@@ -3329,7 +3827,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gmm.cu",
         "replaces": "src/repro/kernels/gmm.py:44",
-        "launches": serve_moe["path_launches"]["gmm"],
+        "launches": serve_moe["path_launches"]["gmm"] + sum(par["k4_launches"]["ep"]
+                                                            + par["k4_launches"]["tpe"]),
+        "serve_launches": serve_moe["path_launches"]["gmm"],
+        "parallel_launches": {"EP per rank (15 experts)": par["k4_launches"]["ep"],
+                              "TPE per rank (60 experts, F 176)": par["k4_launches"]["tpe"]},
         "max_abs_err": gmm_res["main"]["gate/up"]["max_abs_err"],
         "ms": gmm_res["main"]["gate/up"]["ms"],
         "plain_ms": gmm_res["main"]["gate/up"]["plain_ms"],
@@ -3359,7 +3861,8 @@ def main() -> int:
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,
-             "mesh": mesh, "phase_s": phase_s, "kernels": kernels}, indent=1, default=str))
+             "mesh": mesh, "parallel": par, "phase_s": phase_s, "kernels": kernels},
+            indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

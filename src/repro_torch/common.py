@@ -111,8 +111,11 @@ def tree_cast(tree: PyTree, dtype) -> PyTree:
 
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares: a 0-d
-    fp32 tensor on the leaves' device."""
+    fp32 tensor on the leaves' device. A DTensor leaf's sum is reduced over
+    every shard (``full_tensor``), so the norm is a plain tensor, the same
+    on every rank."""
     sums = [t.float().square().sum() for t in tree_leaves(tree)]
+    sums = [s.full_tensor() if hasattr(s, "full_tensor") else s for s in sums]
     return torch.sqrt(torch.stack(sums).sum())
 
 

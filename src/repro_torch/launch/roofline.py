@@ -11,7 +11,7 @@ instruction's result shape (local, since the module is the per-device SPMD
 program) plus its replica-group size, converted to wire bytes with the
 standard ring formulas. ``analyze`` reads one dry-run record (its
 ``cost_analysis`` and ``collectives``); the dry run that writes such records
-comes with the port's parallel slice (ROADMAP Queue 1 item 6). The text
+is still to be ported (ROADMAP Queue 1 item 5). The text
 parsing and the arithmetic are copies of the reference's.
 
 ``count_params`` counts the elements of ``train.steps.abstract_params``

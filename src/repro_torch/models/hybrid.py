@@ -55,22 +55,21 @@ def forward(params, batch, cfg: ModelConfig, pc=None, *, remat: str = "none"):
     """Train / prefill forward: logits (B, S, V); each group's body (its
     Mamba2 layers, then the shared block) under the ``remat`` policy, the
     tail outside it, as in the reference."""
-    T._check(pc)
-    x = L.embed(params["embed"], batch["tokens"], cfg, pc)
+    x = T.shard_acts(L.embed(params["embed"], batch["tokens"], cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
     def body(group, shared, x):
-        x = ssm.mamba_stack(group, x, cfg)
-        return T.block_apply(shared, x, cfg, positions=positions)[0]
+        x = ssm.mamba_stack(group, x, cfg, pc=pc)
+        return T.shard_acts(T.block_apply(shared, x, cfg, positions=positions, pc=pc)[0], pc)
 
     body = T.remat_wrap(body, remat)
     for group in T._layers(params["groups"]):
         x = body(group, params["shared"], x)
     if "tail" in params:
-        x = ssm.mamba_stack(params["tail"], x, cfg)
+        x = ssm.mamba_stack(params["tail"], x, cfg, pc=pc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg)
+    return T.shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype="bfloat16",
@@ -92,18 +91,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype="bfloat16",
 def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
     """One decode step of one token per sequence at ``cache_index``. The
     cache is updated in place. Returns (logits (B, 1, V), cache)."""
-    T._check(pc)
-    x = L.embed(params["embed"], tokens, cfg, pc)
+    x = T.shard_acts(L.embed(params["embed"], tokens, cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
     for gi, group in enumerate(T._layers(params["groups"])):
         group_cache = {k: t[gi] for k, t in cache["groups_ssm"].items()}
-        x = ssm.mamba_stack(group, x, cfg, cache=group_cache)
+        x = ssm.mamba_stack(group, x, cfg, cache=group_cache, pc=pc)
         kv = {k: t[gi] for k, t in cache["attn"].items()}
         x, _ = T.block_apply(params["shared"], x, cfg, positions=positions, cache=kv,
-                             cache_index=cache_index)
+                             cache_index=cache_index, pc=pc)
     if "tail" in params:
-        x = ssm.mamba_stack(params["tail"], x, cfg, cache=cache["tail_ssm"])
+        x = ssm.mamba_stack(params["tail"], x, cfg, cache=cache["tail_ssm"], pc=pc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg), cache
+    return T.shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True), cache

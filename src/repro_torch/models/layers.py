@@ -289,39 +289,130 @@ def attention_block(
     positions: torch.Tensor,
     cache: Optional[dict] = None,
     cache_index: Optional[int] = None,
+    pc=None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Full attention block. If ``cache`` is given, runs one decode step: x
     is (B, s, D) and k/v are written into the cache at ``cache_index`` (in
-    place; see ``serving.kvcache.cache_update``)."""
+    place; see ``serving.kvcache.cache_update``). With a ParallelCtx, x and
+    the weights are DTensors: the projections are DTensor products, and
+    everything from the heads to the attention output runs on each rank's
+    local batch and heads (``_sharded_heads``)."""
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
-    q = (xc @ params["wq"].to(cdt)).reshape(b, s, h, hd)
-    k = (xc @ params["wk"].to(cdt)).reshape(b, s, kvh, hd)
-    v = (xc @ params["wv"].to(cdt)).reshape(b, s, kvh, hd)
+    q = xc @ params["wq"].to(cdt)
+    k = xc @ params["wk"].to(cdt)
+    v = xc @ params["wv"].to(cdt)
+    if pc is not None:
+        out, new_cache = _sharded_heads(params, q, k, v, cfg, pc, positions=positions,
+                                        cache=cache, cache_index=cache_index)
+    else:
+        out, new_cache = _heads(params, q.reshape(b, s, h, hd), k.reshape(b, s, kvh, hd),
+                                v.reshape(b, s, kvh, hd), cfg, positions=positions,
+                                cache=cache, cache_index=cache_index)
+        out = out.reshape(b, s, h * hd)
+    out = out @ params["wo"].to(cdt)
+    return out.to(x.dtype), new_cache
+
+
+def _heads(params, q, k, v, cfg: ModelConfig, *, positions, cache, cache_index,
+           kv_index=None):
+    """q (B,S,H,hd), k/v (B,S,KV,hd) -> the attention output (B,S,H,hd):
+    qk-norm, RoPE, then attention over the sequence or, with a cache, one
+    decode step against it (written in place). ``kv_index`` picks, for
+    each of q's heads, the kv head it reads (a sharded call's local heads)."""
+    s = q.shape[1]
     if cfg.use_qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-
     if cache is None:
-        out = attention_core(q, k, v, cfg, causal=cfg.causal)
-        new_cache = None
+        if kv_index is not None:
+            k, v = k.index_select(2, kv_index), v.index_select(2, kv_index)
+        return attention_core(q, k, v, cfg, causal=cfg.causal), None
+    new_cache = cache_update(cache, k, v, cache_index)
+    read = new_cache
+    if kv_index is not None:  # (B, KV, S, hd|1) -> the local q heads' kv heads
+        read = {n: t.index_select(1, kv_index) for n, t in new_cache.items()}
+    if cfg.lazy_kv_dequant and quantized(read):
+        out = chunked_attention_quantized(q, read, chunk=cfg.attn_chunk,
+                                          q_offset=cache_index, kv_len=cache_index + s)
     else:
-        new_cache = cache_update(cache, k, v, cache_index)
-        if cfg.lazy_kv_dequant and quantized(new_cache):
-            out = chunked_attention_quantized(
-                q, new_cache, chunk=cfg.attn_chunk,
-                q_offset=cache_index, kv_len=cache_index + s,
-            )
-        else:
-            k_full, v_full = cache_kv(new_cache)
-            out = attention_core(q, k_full, v_full, cfg, causal=True,
-                                 q_offset=cache_index, kv_len=cache_index + s)
-    out = out.reshape(b, s, h * hd) @ params["wo"].to(cdt)
-    return out.to(x.dtype), new_cache
+        k_full, v_full = cache_kv(read)
+        out = attention_core(q, k_full, v_full, cfg, causal=True,
+                             q_offset=cache_index, kv_len=cache_index + s)
+    return out, new_cache
+
+
+def _sharded_heads(params, q, k, v, cfg: ModelConfig, pc, *, positions, cache,
+                   cache_index):
+    """``_heads`` over DTensors q (B,S,H*hd), k/v (B,S,KV*hd) from the
+    sharded projections: each rank takes its batch shard and, where the q
+    heads divide the model axis, its q heads. Where the kv heads divide
+    too, each rank's kv heads are the ones its q heads read; otherwise
+    (the GQA guard's fused kv*hd sharding, or replicated kv) k and v are
+    gathered whole and each rank picks, for every local q head, its kv
+    head. Returns the output (B,S,H*hd) sharded like q, and the cache."""
+    from repro_torch.parallel.ctx import P, Sum, assign, shard_map
+
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, msz = pc.model_axis, pc.model_size
+    bt = pc.batch_for(q.shape[0])
+    q_split = pc.tp and h % msz == 0
+    kv_split = q_split and kvh % msz == 0
+    q_ax = m if q_split else None
+    kv_ax = m if kv_split else None
+    rank = pc.mesh.get_local_rank(m) if q_split else 0
+    hl = h // msz if q_split else h
+    work = tuple(pc.batch_axes if bt is not None else ()) + ((m,) if q_split else ())
+    norm_names = [n for n in ("q_norm", "k_norm") if cfg.use_qk_norm]
+    names = list(cache) if cache is not None else []
+    # a (B, KV, S, hd|1) cache is read by batch, and by kv heads where they
+    # divide the model axis; one the rules shard on head_dim is gathered,
+    # written whole and scattered back
+    cache_specs = [P(bt, kv_ax, None, None)] * len(names)
+
+    def body(q, k, v, *rest):
+        norms = {n: {"scale": t} for n, t in zip(norm_names, rest)}
+        layer_cache = dict(zip(names, rest[len(norm_names):]))
+        bl, s = q.shape[:2]
+        q = q.reshape(bl, s, hl, hd)
+        k = k.reshape(bl, s, -1, hd)
+        v = v.reshape(bl, s, -1, hd)
+        pos = positions[:bl]  # rows are equal: the local batch's positions
+        kv_index = None
+        if q_split and not kv_split:
+            # k/v came whole: each local q head's kv head (groups of one)
+            kv_index = torch.arange(rank * hl, (rank + 1) * hl, device=q.device) // (h // kvh)
+        out, new_cache = _heads(norms, q, k, v, cfg, positions=pos,
+                                cache=layer_cache or None, cache_index=cache_index,
+                                kv_index=kv_index)
+        out = out.reshape(bl, s, hl * hd)
+        if cache is None:
+            return out
+        return (out, *(new_cache[n] for n in names))
+
+    in_specs = ([P(bt, None, q_ax), P(bt, None, kv_ax), P(bt, None, kv_ax)]
+                + [P(None)] * len(norm_names) + cache_specs)
+    # a gathered k/v feeds only the local heads' share; the norms' scales
+    # take a share from every rank's batch and heads
+    kv_grad = Sum(P(bt, None, None), (m,)) if q_split and not kv_split else None
+    grad_specs = ([None, kv_grad or in_specs[1], kv_grad or in_specs[2]]
+                  + [Sum(P(None), work)] * len(norm_names) + cache_specs)
+    out_specs = P(bt, None, q_ax)
+    if cache is not None:
+        out_specs = [out_specs] + cache_specs
+    res = shard_map(body, pc, in_specs, out_specs, grad_specs)(
+        q, k, v, *(params[n]["scale"] for n in norm_names), *(cache[n] for n in names))
+    if cache is None:
+        return res, None
+    out, *new = res
+    for n, t in zip(names, new):
+        if t.placements != cache[n].placements:  # written on a gathered copy
+            assign(cache[n], t)
+    return out, dict(cache)
 
 
 # ---------------------------------------------------------------------------
@@ -365,16 +456,34 @@ def init_embedding(gen, cfg: ModelConfig, *, device="cuda") -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig, pc=None) -> torch.Tensor:
-    """Token embedding lookup. The reference's sharded lookup (a
-    ``ParallelCtx``) comes with the parallel slice: ``pc`` must be None."""
-    if pc is not None:
-        raise NotImplementedError("a sharded embedding (pc) comes with the port's "
-                                  "parallel slice")
+    """Token embedding lookup. With a ParallelCtx the gather runs on each
+    rank's local pieces (``ctx.shard_map``), with zero collectives, as the
+    reference's ``shard_map`` body does: with TP on and a d_model that
+    divides, the table is sharded on d_model over the model axis; otherwise
+    the table is gathered whole first. Tokens are sharded by batch where
+    the batch divides."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = params["embedding"][tokens].to(cdt)  # gather, then cast: the same values
+    table = params["embedding"]
+    if pc is None:
+        x = table[tokens].to(cdt)  # gather, then cast: the same values
+    else:
+        x = _sharded_embed(table, tokens, cdt, pc)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=x.device)
     return x
+
+
+def _sharded_embed(table, tokens, cdt, pc):
+    from repro_torch.parallel.ctx import P, Sum, shard_map
+
+    bt = pc.batch_for(tokens.shape[0])
+    d_ax = pc.model_axis if pc.tp and table.shape[1] % pc.model_size == 0 else None
+    tab_spec = P(None, d_ax)
+    # each rank scatters its own tokens' rows into the table's gradient
+    tab_grad = Sum(tab_spec, pc.batch_axes) if bt is not None else tab_spec
+    return shard_map(lambda tok, tab: tab.to(cdt)[tok], pc,
+                     in_specs=(P(bt, None), tab_spec), out_specs=P(bt, None, d_ax),
+                     grad_specs=(None, tab_grad))(tokens, table)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

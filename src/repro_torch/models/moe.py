@@ -5,9 +5,19 @@ The reference's single-device path (``ep_scheme`` "ref": no
 into per-expert capacity buckets, run the experts' gated MLPs as three
 grouped products, and gather the outputs back weighted by the router. The
 three products (the reference's ``ecd,edf->ecf`` einsums) go through
-``ops.gmm``: on the card the gmm kernel, on the CPU its plain version. The
-expert-parallel (EP) and tensor-parallel-expert (TPE) schemes come with the
-port's parallel slice and raise until then, as a ``pc`` does everywhere.
+``ops.gmm``: on the card the gmm kernel, on the CPU its plain version.
+
+With a ``ParallelCtx`` one of two schemes, chosen per architecture:
+  * EP  (num_experts %% model_axis == 0): experts sharded over the model
+    axis, replicated routing, local dispatch buffers, a sum over the model
+    axis to combine;
+  * TPE (otherwise): every shard holds all experts with the per-expert
+    hidden dim sharded over the model axis; the same sum combines.
+Each runs the single-device math on each rank's local tokens and expert
+stacks (``ctx.shard_map``), so capacity is per local token count, as in
+the reference's ``shard_map`` body, and the local products are gmm
+launches. FSDP-sharded expert weights are gathered over the data axis on
+the way in.
 """
 from __future__ import annotations
 
@@ -87,7 +97,12 @@ def expert_ffn(buf, wg, wu, wo, cfg: ModelConfig):
     gate = kops.gmm(x, wg.to(cdt))
     up = kops.gmm(x, wu.to(cdt))
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    return kops.gmm(act * up, wo.to(cdt))
+    # each (E, C, F) product is dropped once used: without autograd nothing
+    # else holds it, and a capacity that never drops tokens makes C large
+    del gate
+    h = act * up
+    del act, up
+    return kops.gmm(h, wo.to(cdt))
 
 
 # ---------------------------------------------------------------------------
@@ -122,11 +137,55 @@ def _moe_ffn_local(x3d, wr, wg, wu, wo, cfg, e_start, e_count):
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, pc=None):
     """Routed-experts FFN. Returns (out (B,S,D), aux loss scalar)."""
     scheme = ep_scheme(cfg, pc)
-    if scheme != "ref":
-        raise NotImplementedError(f"the {scheme} expert scheme comes with the port's "
-                                  "parallel slice")
-    return _moe_ffn_local(x, params["router"], params["wg"], params["wu"], params["wo"],
-                          cfg, 0, cfg.num_experts)
+    wr, wg, wu, wo = params["router"], params["wg"], params["wu"], params["wo"]
+    if pc is None:
+        return _moe_ffn_local(x, wr, wg, wu, wo, cfg, 0, cfg.num_experts)
+    return _sharded_moe_ffn(x, wr, wg, wu, wo, cfg, pc, scheme)
+
+
+def _sharded_moe_ffn(x, wr, wg, wu, wo, cfg: ModelConfig, pc, scheme: str):
+    """``moe_ffn`` over DTensors: each rank routes its own tokens (the batch
+    shard; the model axis holds copies) and runs its share of the experts:
+    its ``E / model`` experts from ``e_start = rank_on_model * e_count``
+    (EP), all experts on its slice of the hidden dim (TPE), or everything
+    (``ref``: replicated over the model axis). The outputs are summed over
+    the model axis; ``aux`` is averaged over every rank."""
+    from repro_torch.parallel.ctx import P, Sum, shard_map
+
+    m = pc.model_axis
+    split = scheme != "ref"
+    # the "ref" scheme routes the whole batch at once, as the reference's
+    # unsharded code does (its capacity counts every token)
+    bt = pc.batch_for(x.shape[0]) if split else None
+    rank = pc.mesh.get_local_rank(m) if scheme != "ref" else 0
+    e_count = cfg.num_experts // pc.model_size if scheme == "ep" else cfg.num_experts
+    e_start = rank * e_count if scheme == "ep" else 0
+    if scheme == "ep":
+        w_spec = wo_spec = P(m, None, None)
+    elif scheme == "tpe":
+        w_spec, wo_spec = P(None, None, m), P(None, m, None)
+    else:
+        w_spec = wo_spec = P(None, None, None)
+    work = tuple(pc.batch_axes if bt is not None else ()) + ((m,) if split else ())
+    n_ranks = 1
+    for a in work:
+        n_ranks *= pc.shape[a]
+
+    def body(x3d, wr_, wg_, wu_, wo_):
+        out, aux = _moe_ffn_local(x3d, wr_, wg_, wu_, wo_, cfg, e_start, e_count)
+        # each rank's share of the mean over the ranks that split the work
+        return out, aux / n_ranks
+
+    x_spec = P(bt, None, None)
+    out_spec = Sum(x_spec, (m,)) if split else x_spec
+    # the data axis splits the tokens: every weight's gradient is a sum over
+    # it, and over the model axis for what every model rank holds whole
+    grad = (Sum(x_spec, (m,)) if split else x_spec, Sum(P(None, None), work),
+            Sum(w_spec, work[:-1] if split else work),
+            Sum(w_spec, work[:-1] if split else work),
+            Sum(wo_spec, work[:-1] if split else work))
+    return shard_map(body, pc, in_specs=(x_spec, P(None, None), w_spec, w_spec, wo_spec),
+                     out_specs=(out_spec, Sum(P(), work)), grad_specs=grad)(x, wr, wg, wu, wo)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +236,7 @@ def block_apply(params, x, cfg: ModelConfig, pc=None, *, positions, cache=None,
         positions=positions,
         cache=cache,
         cache_index=cache_index,
+        pc=pc,
     )
     x = x + h
     xin = L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps)
@@ -207,22 +267,22 @@ params_from_reference = T.params_from_reference
 def forward(params, batch, cfg: ModelConfig, pc=None, *, remat: str = "none"):
     """Returns (logits (B, S, V), aux loss averaged over the layers); each
     layer's body under the ``remat`` policy."""
-    T._check(pc)
-    x = L.embed(params["embed"], batch["tokens"], cfg, pc)
+    x = T.shard_acts(L.embed(params["embed"], batch["tokens"], cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
     def body(lp, x):
         y, _, layer_aux = block_apply(lp, x, cfg, pc, positions=positions)
-        return y, layer_aux
+        return T.shard_acts(y, pc), layer_aux
 
     body = T.remat_wrap(body, remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = 0.0
     for lp in T._layers(params["layers"]):
         x, layer_aux = body(lp, x)
         aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg), aux / cfg.num_layers
+    logits = T.shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True)
+    return logits, aux / cfg.num_layers
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype="bfloat16",
@@ -234,8 +294,7 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
     """One decode step of ``s`` tokens per sequence written at
     ``cache_index`` (``s > 1`` fills the cache from a prompt). The stacked kv
     cache is updated in place. Returns (logits (B, s, V), cache)."""
-    T._check(pc)
-    x = L.embed(params["embed"], tokens, cfg, pc)
+    x = T.shard_acts(L.embed(params["embed"], tokens, cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
@@ -244,4 +303,4 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, pc=None):
         x, _, _ = block_apply(lp, x, cfg, pc, positions=positions, cache=layer_cache,
                               cache_index=cache_index)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg), cache
+    return T.shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True), cache

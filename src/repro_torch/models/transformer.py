@@ -17,6 +17,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.common import dtype_of, fold_seed, tree_from_numpy, tree_leaves, tree_unflatten
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.ctx import batch_input, constrain
 from repro_torch.serving import kvcache
 
 # ---------------------------------------------------------------------------
@@ -126,6 +127,7 @@ def block_apply(
     positions: torch.Tensor,
     cache: Optional[dict] = None,
     cache_index: Optional[int] = None,
+    pc=None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     h, new_cache = L.attention_block(
         params["attn"],
@@ -134,6 +136,7 @@ def block_apply(
         positions=positions,
         cache=cache,
         cache_index=cache_index,
+        pc=pc,
     )
     x = x + h
     x = x + L.mlp_block(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps), cfg)
@@ -148,17 +151,28 @@ def block_apply(
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig, pc=None) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
     if cfg.frontend == "audio_frames":
-        return batch["frames"].to(cdt) @ params["in_proj"].to(cdt)
+        return batch_input(batch["frames"], pc).to(cdt) @ params["in_proj"].to(cdt)
     if cfg.frontend == "vision_patches":
-        patches = batch["patches"].to(cdt) @ params["connector"].to(cdt)
+        patches = batch_input(batch["patches"], pc).to(cdt) @ params["connector"].to(cdt)
         toks = L.embed(params["embed"], batch["tokens"], cfg, pc)
+        patches = constrain(patches, pc, None, None, model_dim(pc, patches), batch_dim=0)
         return torch.cat([patches, toks], dim=1)
     return L.embed(params["embed"], batch["tokens"], cfg, pc)
 
 
-def _check(pc) -> None:
-    if pc is not None:
-        raise NotImplementedError("a ParallelCtx (pc) comes with the port's parallel slice")
+def model_dim(pc, x):
+    """The spec entry of an activation's last dim at the reference's
+    constraint points: the model axis where it divides, else None."""
+    if pc is None or x.shape[-1] % pc.model_size:
+        return None
+    return pc.act_model_axis
+
+
+def shard_acts(x, pc, model: bool = False):
+    """The reference's constraint on a (B, S, D) activation: by batch, and
+    on its last dim over the model axis when ``model`` (after the embed,
+    the logits)."""
+    return constrain(x, pc, None, None, model_dim(pc, x) if model else None, batch_dim=0)
 
 
 def forward(
@@ -173,16 +187,17 @@ def forward(
 ):
     """Train / prefill forward. Returns logits (B, S, V); with return_cache also
     returns a stacked (L-leading) KV cache holding the prefilled keys/values,
-    each (L, B, KV, S, hd)."""
-    _check(pc)
-    x = _embed_inputs(params, batch, cfg, pc)
+    each (L, B, KV, S, hd). With a ParallelCtx the parameters are DTensors
+    and the activations are constrained where the reference constrains
+    them: after the embed, after each block, and the logits."""
+    x = shard_acts(_embed_inputs(params, batch, cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     cdt = dtype_of(cfg.compute_dtype)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
     def body(lp, x):
-        return block_apply(lp, x, cfg, positions=positions)[0]
+        return shard_acts(block_apply(lp, x, cfg, positions=positions, pc=pc)[0], pc)
 
     body = remat_wrap(body, remat)
     ks, vs = [], []
@@ -200,7 +215,7 @@ def forward(
             vs.append(v.transpose(1, 2).to(kv_dtype))
         x = y
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
+    logits = shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True)
     if return_cache:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits
@@ -224,15 +239,15 @@ def decode_step(
     """One decode step. tokens: (B, s), written at ``cache_index``. cache:
     stacked (L, ...) kv cache, updated in place. Returns (logits (B, s, V),
     cache)."""
-    _check(pc)
-    x = L.embed(params["embed"], tokens, cfg, pc)
+    x = shard_acts(L.embed(params["embed"], tokens, cfg, pc), pc, model=True)
     b, s, _ = x.shape
     positions = (cache_index + torch.arange(s, dtype=torch.int32, device=x.device)
                  ).expand(b, s)
     for i, lp in enumerate(_layers(params["layers"])):
         layer_cache = {name: t[i] for name, t in cache.items()}
         x, _ = block_apply(lp, x, cfg, positions=positions, cache=layer_cache,
-                           cache_index=cache_index)
+                           cache_index=cache_index, pc=pc)
+        x = shard_acts(x, pc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
+    logits = shard_acts(L.unembed(params["embed"], x, cfg), pc, model=True)
     return logits, cache

@@ -14,8 +14,15 @@ Design goals (the parts that matter at 1000+ nodes):
   * bounded: keeps the last ``keep`` checkpoints, deletes older ones
 
 numpy has no bfloat16 of its own, so a bf16 leaf is stored as its raw bits
-(``uint16``) and the manifest records ``"bfloat16"``. Restoring onto
-another mesh (``shardings``) comes with the port's parallel slice.
+(``uint16``) and the manifest records ``"bfloat16"``.
+
+A state of DTensors (the sharded train step's) is saved as the same full
+arrays: every rank takes part in gathering one leaf at a time, and rank 0
+writes it into the archive before the next, so no rank holds the whole
+state gathered; such a save is blocking. ``restore`` places each leaf onto
+a ``(mesh, placements)`` (the elastic-rescale path: the checkpoint does not
+care what mesh wrote it), each rank reading and building only its own
+slice; a DTensor leaf of ``state_like`` gives its own placements.
 """
 from __future__ import annotations
 
@@ -23,12 +30,17 @@ import json
 import os
 import shutil
 import threading
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.common import tree_paths, tree_unflatten_paths
+from repro_torch.parallel.sharding import contiguous_strides
 
 _MANIFEST = "manifest.json"
 _DATA = "arrays.npz"
@@ -59,28 +71,17 @@ def save(
     keep: int = 3,
     blocking: bool = True,
 ) -> Optional[threading.Thread]:
+    if any(isinstance(leaf, DTensor) for _, leaf in tree_paths(state)):
+        _save_sharded(ckpt_dir, step, state, keep)
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays, dtypes = _flatten(state)  # host snapshot happens NOW (async-safe)
 
     def write():
-        tmp = os.path.join(ckpt_dir, f"{step}.tmp")
-        final = os.path.join(ckpt_dir, str(step))
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        tmp = _begin(ckpt_dir, step)
         np.savez(os.path.join(tmp, _DATA), **arrays)
-        manifest = {
-            "step": step,
-            "paths": list(arrays.keys()),
-            "shapes": {k: list(v.shape) for k, v in arrays.items()},
-            "dtypes": dtypes,
-        }
-        with open(os.path.join(tmp, _MANIFEST), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # atomicity point
-        _gc(ckpt_dir, keep)
+        _finish(ckpt_dir, step, keep, {k: list(v.shape) for k, v in arrays.items()},
+                dtypes)
 
     if blocking:
         write()
@@ -88,6 +89,56 @@ def save(
     t = threading.Thread(target=write, daemon=True)
     t.start()
     return t
+
+
+def _begin(ckpt_dir: str, step: int) -> str:
+    tmp = os.path.join(ckpt_dir, f"{step}.tmp")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    return tmp
+
+
+def _finish(ckpt_dir: str, step: int, keep: int, shapes: dict, dtypes: dict) -> None:
+    tmp = os.path.join(ckpt_dir, f"{step}.tmp")
+    final = os.path.join(ckpt_dir, str(step))
+    manifest = {"step": step, "paths": list(shapes), "shapes": shapes, "dtypes": dtypes}
+    with open(os.path.join(tmp, _MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomicity point
+    _gc(ckpt_dir, keep)
+
+
+def _save_sharded(ckpt_dir: str, step: int, state: Any, keep: int) -> None:
+    """Every rank gathers each leaf in turn; rank 0 appends it to the
+    archive (the ``np.savez`` layout: one ``.npy`` member per path) before
+    the next is gathered. Returns on every rank once the checkpoint is in
+    place."""
+    writer = dist.get_rank() == 0
+    shapes, dtypes = {}, {}
+    archive = None
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        archive = zipfile.ZipFile(os.path.join(_begin(ckpt_dir, step), _DATA), "w",
+                                  compression=zipfile.ZIP_STORED, allowZip64=True)
+    try:
+        for path, leaf in tree_paths(state):
+            full = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+            if writer:
+                arr = _host(full)
+                with archive.open(path + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                shapes[path] = list(arr.shape)
+                dtypes[path] = str(leaf.dtype).removeprefix("torch.")
+            del full
+    finally:
+        if archive is not None:
+            archive.close()
+    if writer:
+        _finish(ckpt_dir, step, keep, shapes, dtypes)
+    dist.barrier()
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -128,10 +179,10 @@ def restore(
     shardings: Any = None,
 ) -> tuple[Any, int]:
     """Restore into the structure of ``state_like``: each leaf a new tensor
-    of the like leaf's type on its device."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings comes with the port's "
-                                  "parallel slice")
+    of the like leaf's type on its device. ``shardings``, a tree like
+    ``state_like`` of ``(mesh, placements)`` pairs, places each leaf as a
+    DTensor instead (a DTensor like leaf gives its own when ``shardings``
+    is None); each rank reads and builds only its own slice."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -140,14 +191,44 @@ def restore(
     with open(os.path.join(d, _MANIFEST)) as f:
         dtypes = json.load(f)["dtypes"]
     like = tree_paths(state_like)
+    placed = (_along(state_like, shardings) if shardings is not None else
+              [(t.device_mesh, t.placements) if isinstance(t, DTensor) else None
+               for _, t in like])
     with np.load(os.path.join(d, _DATA)) as data:
         missing = [p for p, _ in like if p not in data]
         if missing:
             raise KeyError(f"checkpoint missing {len(missing)} arrays, e.g. {missing[:3]}")
         leaves = []
-        for p, t in like:
+        for (p, t), where in zip(like, placed):
             arr = data[p]
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{p}: shape {arr.shape} != expected {t.shape}")
-            leaves.append(_tensor(arr, dtypes[p]).to(device=t.device, dtype=t.dtype))
+            if where is None:
+                leaves.append(_tensor(arr, dtypes[p]).to(device=t.device, dtype=t.dtype))
+            else:
+                leaves.append(_placed(arr, dtypes[p], t.dtype, *where))
     return tree_unflatten_paths(state_like, leaves), step
+
+
+def _along(like, other) -> list:
+    """``other``'s entries where ``like`` has leaves, in ``tree_paths``
+    order (``other`` may hold tuples where ``like`` has leaves)."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _along(like[k], other[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for i, t in enumerate(like) for x in _along(t, other[i])]
+    return [other]
+
+
+def _placed(arr: np.ndarray, dtype: str, like_dtype: torch.dtype, mesh, placements) -> DTensor:
+    """This rank's slice of the full array ``arr``, as a DTensor on
+    ``mesh`` placed by ``placements``."""
+    shape, offset = compute_local_shape_and_global_offset(arr.shape, mesh, placements)
+    index = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+    local = _tensor(np.ascontiguousarray(arr[index]), dtype)
+    local = local.to(device=mesh.device_type, dtype=like_dtype)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(arr.shape),
+                              stride=contiguous_strides(arr.shape))

@@ -66,7 +66,8 @@ def _is_matrix(x) -> bool:
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """fp32 zeros shaped (and, for a DTensor, placed) as ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
 
 def _apply(p: torch.Tensor, delta: torch.Tensor) -> None:

@@ -10,7 +10,10 @@ oneshot supernet (ibn_pointwise) and the learned cost model against the
 port's CPU run, the pod mesh search with its PPO updates on the card
 against the same search on the CPU, and a sweep whose spawned workers train
 their candidates on the card against the serial sweep, and two threads
-training at once on the card against each training alone. Every test here carries the ``cuda`` marker
+training at once on the card against each training alone, and the
+parallel substrate on the card (a 4-rank sharded train step against the
+unsharded one, the launcher under ``torchrun --mesh 2x2``, the kernels
+refusing a DTensor). Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -40,6 +43,7 @@ from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.data.synthetic import LMStream  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from repro_torch.train.optim import make_optimizer  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (its phases run only under __main__)
@@ -998,3 +1002,130 @@ def test_concurrent_trainings_on_card_are_bitwise_the_lone_ones(monkeypatch):
     assert all(f == held for name in ("both-0", "both-1") for f in flags[name])
     assert len(flags["both-1"]) == 24
     assert stamps["both-1"][-1] > done["both-0"]  # the longer one trained on alone
+
+
+# ---------------------------------------------------------------------------
+# The parallel substrate on the card: ranks sharing one GPU talk over gloo
+# ---------------------------------------------------------------------------
+
+
+def _sharded_card_step(rank: int) -> dict:
+    """One rank of a (2, 2) world on the card: the qwen3-like config's
+    sharded loss and gradients (whole), its AdamW update against the
+    unsharded optimizer's on the same clipped gradients, one train step's
+    loss, and its K2 launches."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.ctx import from_mesh
+
+    cfg = _sharded_card_cfg()
+    run, batch = _sharded_card_run(cfg)
+    pc = from_mesh(make_mesh((2, 2), ("data", "model")))
+    step, sspecs, bspecs = steps.make_train_step(run, pc)
+    whole = api.init(0, cfg, device="cuda")
+    params = sharding.distribute_tree(whole, sspecs["params"], pc.mesh)
+    batch = sharding.distribute_tree({k: v.cuda() for k, v in batch.items()}, bspecs, pc.mesh)
+    opt = make_optimizer(run.train)
+    tflash.LAUNCHES = 0
+    loss, _, grads = steps.value_and_grad(params, batch, run, pc)
+    out = {"loss": loss.full_tensor().item(), "launches": tflash.LAUNCHES,
+           "grads": tree_map(lambda g: g.full_tensor().cpu(), grads)}
+    new, _, _ = opt.step(tree_map(torch.clone, params), grads, opt.init(params))
+    out["update_err"] = chip_smoke._sharded_update_err(new, grads, whole, run)
+    _, metrics = step({"params": params, "opt": opt.init(params)}, batch)
+    out["step_loss"] = metrics["loss"].item()
+    return out
+
+
+def _sharded_card_cfg():
+    return ModelConfig(family="dense", num_layers=2, d_model=128, num_heads=4,
+                       num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=512,
+                       use_qk_norm=True, attn_impl="flash_pallas", compute_dtype="float32")
+
+
+def _sharded_card_run(cfg):
+    from repro_torch.config import MeshConfig
+
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                    train=TrainConfig(warmup_steps=1, learning_rate=1e-3),
+                    mesh=MeshConfig(fsdp_min_size=1))
+    host = LMStream(cfg.vocab_size, 64, 4, seed=0).batch_at(0)
+    return run, {k: torch.from_numpy(v) for k, v in host.items()}
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_card_matches_the_unsharded_one():
+    """A 4-rank (2, 2) world whose ranks share the card (gloo, CUDA
+    tensors staged through host memory), fp32: the sharded loss (and the
+    train step's) and gradients against the card's unsharded ones, and the
+    sharded AdamW update against the unsharded optimizer's on the same
+    clipped gradients, at chip_smoke's limits; K2 launched on every rank
+    (its local heads), the same number of times."""
+    _need_sm90()
+    from repro_torch.launch.mesh import run_world
+
+    kbuild.build(tflash.SOURCE)  # once, before the ranks start
+    res = run_world(_sharded_card_step, 4, "cuda", timeout_s=600)
+    cfg = _sharded_card_cfg()
+    run, batch = _sharded_card_run(cfg)
+    params = api.init(0, cfg, device="cuda")
+    loss, _, grads = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)
+    for r in res:
+        for got in (r["loss"], r["step_loss"]):
+            assert abs(got - loss.item()) <= 1e-5 * abs(loss.item())
+        assert max(chip_smoke._grad_errs(r["grads"], tree_map(lambda g: g.cpu(), grads))) \
+            <= 1e-4
+        assert r["update_err"] <= 1e-4
+    assert len({r["launches"] for r in res}) == 1 and res[0]["launches"] > 0
+
+
+@pytest.mark.cuda
+def test_launcher_trains_over_a_mesh_on_card(tmp_path):
+    import os
+    import subprocess
+
+    _need_sm90()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "4", "-m", "repro_torch.launch.train", "--arch", "qwen3-1.7b", "--smoke",
+         "--steps", "3", "--seq", "32", "--batch", "4", "--mesh", "2x2",
+         "--ckpt", str(tmp_path / "ck")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    assert f"backend {backend}" in out.stdout and "done: 3 steps" in out.stdout
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_dtensor(tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.parallel.ctx import P, placements
+
+    _need_card()
+    init_world(0, 1, "cuda", store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_mesh((1,), ("data",))
+
+        def dt(*shape):
+            t = torch.randn(*shape, device="cuda")
+            return torch.distributed.tensor.DTensor.from_local(
+                t, mesh, placements(P(*([None] * len(shape))), mesh))
+
+        calls = {
+            "ibn_pointwise": lambda: ops.ibn_pointwise(dt(8, 16), dt(16, 8), None),
+            "flash_attention": lambda: ops.flash_attention(dt(1, 8, 2, 64), dt(1, 8, 2, 64),
+                                                           dt(1, 8, 2, 64)),
+            "ssd_scan": lambda: ops.ssd_scan(dt(1, 8, 2, 16), dt(1, 8, 2), dt(2),
+                                             dt(1, 8, 1, 16), dt(1, 8, 1, 16), chunk=8),
+            "gmm": lambda: ops.gmm(dt(2, 8, 16), dt(2, 16, 8)),
+        }
+        for name, call in calls.items():
+            with pytest.raises(TypeError, match=f"{name} takes local tensors"):
+                call()
+    finally:
+        dist.destroy_process_group()

@@ -195,16 +195,34 @@ def test_route_dispatch_combine_match_reference(capacity, e_start, e_count):
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < ROUTE_TOL
 
 
-def test_ep_scheme_matches_reference_and_sharded_schemes_raise():
+def test_ep_scheme_matches_reference_and_sharded_schemes_decompose():
+    """The scheme choice equals the reference's; and the math each sharded
+    scheme runs on a rank sums, over the model axis's ranks, to the
+    single-device layer: EP's ranks each their E / M experts from
+    ``e_start = rank * e_count``, TPE's each a slice of every expert's
+    hidden dim (tests/test_torch_sharded.py runs both in a world)."""
     for size in (1, 2, 3, 4, 5):
         pc = SimpleNamespace(model_size=size)
         assert TM.ep_scheme(_port(CFG), pc) == RM.ep_scheme(CFG, pc)
     assert TM.ep_scheme(_port(CFG), None) == "ref"
-    params = TM.init(0, _port(CFG), device="cpu")
-    x = torch.zeros((1, 3, CFG.d_model))
+    cfg = _port(CFG, compute_dtype="float32")
+    params = TM.init(0, cfg, device="cpu")
     layer0 = {k: t[0] for k, t in params["layers"]["moe"].items() if k != "shared"}
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        TM.moe_ffn(layer0, x, _port(CFG), SimpleNamespace(model_size=2))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 5, CFG.d_model))
+                         .astype(np.float32))
+    want, aux = TM.moe_ffn(layer0, x, cfg)
+    wr, wg, wu, wo = (layer0[k] for k in ("router", "wg", "wu", "wo"))
+    for m in (2, 3):  # EP: 6 experts over 2 or 3 ranks
+        ec = cfg.num_experts // m
+        parts = [TM._moe_ffn_local(x, wr, wg[r * ec:(r + 1) * ec], wu[r * ec:(r + 1) * ec],
+                                   wo[r * ec:(r + 1) * ec], cfg, r * ec, ec) for r in range(m)]
+        assert torch.allclose(sum(o for o, _ in parts), want, atol=1e-5, rtol=0)
+        assert all(torch.equal(a, aux) for _, a in parts)
+    f = cfg.moe_d_ff // 4  # TPE: the hidden dim over 4 ranks
+    parts = [TM._moe_ffn_local(x, wr, wg[..., r * f:(r + 1) * f], wu[..., r * f:(r + 1) * f],
+                               wo[:, r * f:(r + 1) * f], cfg, 0, cfg.num_experts)[0]
+             for r in range(4)]
+    assert torch.allclose(sum(parts), want, atol=1e-5, rtol=0)
 
 
 @functools.lru_cache(maxsize=None)

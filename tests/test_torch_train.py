@@ -591,7 +591,11 @@ def test_launcher_trains_a_smoke_config(tmp_path, capsys):
                   "--batch", "2", "--device", "cpu", "--ckpt", str(tmp_path / "ck")])
     assert "done: 3 steps" in capsys.readouterr().out
     assert tckpt.latest_step(str(tmp_path / "ck_qwen3_1_7b")) == 3
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tlaunch.main(["--arch", "qwen3-1.7b", "--smoke", "--mesh", "2x4", "--device", "cpu"])
+    # --mesh trains under torchrun (tests/test_torch_sharded.py); a world
+    # of another size than the mesh's is refused before anything starts
+    with mock.patch.dict(os.environ, {"WORLD_SIZE": "1"}):
+        with pytest.raises(SystemExit, match="needs 8 ranks"):
+            tlaunch.main(["--arch", "qwen3-1.7b", "--smoke", "--mesh", "2x4", "--device",
+                          "cpu"])
     with pytest.raises(SystemExit, match="token-LM families"):
         tlaunch.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])

@@ -14,6 +14,7 @@ config and reused by every test of this file.
 """
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -249,32 +250,67 @@ def test_init_shapes_and_statistics(name):
                            ours["embed"]["embedding"])
 
 
+@pytest.fixture(scope="module")
+def one_rank_pc(tmp_path_factory):
+    """A ParallelCtx over a (1, 1) (data, model) mesh of a one-rank gloo
+    world in this process, torn down after the module."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.parallel.ctx import from_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("world") / "store"), 1)
+    init_world(0, 1, "cpu", store=store)
+    try:
+        yield from_mesh(make_mesh((1, 1), ("data", "model"), device="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
-def test_later_families_raise(family):
-    """The moe, ssm and hybrid families are served and trained now (their
-    parity tests are tests/test_torch_{moe,ssm,hybrid,train}.py); what they
-    still raise, as the dense family does, is a sharded (pc) forward, which
-    comes with the parallel slice. A remat forward gives the plain one's
-    logits."""
+def test_later_families_forward_sharded_and_remat(family, one_rank_pc):
+    """The moe, ssm and hybrid families are served and trained (their
+    parity tests are tests/test_torch_{moe,ssm,hybrid,train}.py); a
+    sharded (pc) forward over a one-rank mesh gives the plain logits as a
+    DTensor (tests/test_torch_sharded.py holds 8 ranks), and a remat
+    forward gives the plain one's logits."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.parallel import sharding
+
     arch = {"moe": "qwen2_moe_a2_7b", "ssm": "mamba2_370m", "hybrid": "zamba2_7b"}[family]
     cfg = port_configs.smoke(arch)
     params = api.init(0, cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
     logits, aux = api.forward(params, batch, cfg)
     assert logits.shape == (1, 4, cfg.vocab_size) and aux.shape == ()
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        api.forward(params, batch, cfg, pc=object())
+    sharded = sharding.distribute_tree(
+        params, sharding.param_specs(params, cfg, one_rank_pc, MeshConfig()), one_rank_pc.mesh)
+    got, got_aux = api.forward(sharded, batch, cfg, pc=one_rank_pc)
+    assert torch.allclose(got.full_tensor(), logits, atol=1e-5, rtol=0)
+    assert torch.allclose(got_aux.full_tensor(), aux)
     assert torch.equal(api.forward(params, batch, cfg, remat="full")[0], logits)
 
 
-def test_sharded_and_remat_paths_raise():
+def test_sharded_and_remat_paths(one_rank_pc):
+    from repro_torch.config import MeshConfig
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.ctx import P, from_mesh
+
     cfg = _port(CFGS["dense"])
     params = TT.params_from_reference(_params("dense"), "cpu")
     batch = {"tokens": torch.from_numpy(_tokens("dense", 4))}
     for remat in ("full", "dots"):  # remat runs since the training slice
         assert torch.equal(TT.forward(params, batch, cfg, remat=remat),
                            TT.forward(params, batch, cfg))
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        TT.forward(params, batch, cfg, pc=object())
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        steps.make_decode_step(port_configs.make_run("qwen3_1_7b", "decode_32k"), pc=object())
+    sharded = sharding.distribute_tree(
+        params, sharding.param_specs(params, cfg, one_rank_pc, MeshConfig()), one_rank_pc.mesh)
+    assert torch.allclose(TT.forward(sharded, batch, cfg, pc=one_rank_pc).full_tensor(),
+                          TT.forward(params, batch, cfg), atol=1e-5, rtol=0)
+    # the decode step's spec trees on the production mesh: the GQA guard
+    # shards qwen3's 8 kv heads' cache on head_dim over the 16-way model axis
+    pc = from_mesh(SimpleNamespace(shape={"data": 16, "model": 16}))
+    _, pspecs, cspecs, bspecs = steps.make_decode_step(
+        port_configs.make_run("qwen3_1_7b", "decode_32k"), pc=pc)
+    assert cspecs["k"] == P(None, "data", None, None, "model")
+    assert pspecs["layers"]["attn"]["wk"] == P(None, "data", "model")
+    assert bspecs == {"tokens": P("data", None)}

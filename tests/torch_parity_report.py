@@ -3,6 +3,7 @@ the CPU, one row per parity check of tests/test_torch_*.py, with the
 tolerance each test holds it to (the tests assert; this reports the values).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity_report.py sharded
 """
 import sys
 from pathlib import Path
@@ -623,11 +624,52 @@ def runtime_rows():
              "test_plan_transfer_is_bitwise_on_the_grid", 0, transfer)]
 
 
+def sharded_rows():
+    """The 8-rank gloo world of tests/test_torch_sharded.py against the
+    reference's unsharded results."""
+    import tempfile
+
+    import test_torch_sharded as tsh
+
+    with tempfile.TemporaryDirectory() as d:
+        world = tsh.run_the_world(Path(d))
+        forward = {name: tsh.forward_errs(world, name) for name in tsh.FORWARD}
+        train = {name: tsh.train_errs(world, name) for name in tsh.TRAIN}
+        pipe = tsh.pipeline_err(world, Path(d))
+    rows = [(f"sharded forward on (2, 4), {name}, fp32, / max |logit|",
+             "test_sharded_forward_matches_reference", tsh.LOGIT_TOL, err[0])
+            for name, err in forward.items()]
+    rows.append(("sharded moe aux (EP and TPE) against the mean of the data shards' auxes",
+                 "test_sharded_forward_matches_reference", 1e-5,
+                 max(forward["moe_ep"][1], forward["moe_tpe"][1])))
+    for name, (loss, grad, param) in train.items():
+        rows += [(f"sharded train step {name}: loss, relative",
+                  "test_sharded_train_step_matches_reference", tsh.LOSS_TOL, loss),
+                 (f"sharded train step {name}: first gradients, per leaf / its max",
+                  "test_sharded_train_step_matches_reference", tsh.GRAD_TOL, grad),
+                 (f"sharded train step {name}: params after {tsh.TRAIN_STEPS} steps, per "
+                  "leaf / max(1, max)", "test_sharded_train_step_matches_reference",
+                  tsh.PARAM_TOL, param)]
+    ckpt = max(max(r["reshard"]["mesh42"], r["reshard"]["one"]) for r in world[1])
+    return rows + [
+        ("sharded dense decode, prompt + 6 steps, bf16 cache, / max |logit|",
+         "test_sharded_decode_matches_reference", tsh.DECODE_TOL, tsh.decode_err(world)),
+        ("sharded checkpoint restored onto (4, 2) and one device (max |difference|)",
+         "test_sharded_checkpoint_restores_onto_other_meshes_bitwise", 0, ckpt),
+        ("compressed_psum, 4 ranks, 8 steps with error feedback (mismatching arrays)",
+         "test_compressed_psum_is_bitwise_the_reference", 0, tsh.psum_mismatches(world)),
+        ("pipeline_apply, 8 stages, against the reference's own",
+         "test_pipeline_matches_the_reference_pipeline", tsh.PIPE_TOL, pipe)]
+
+
 def main():
-    rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
-            + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
-            + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows()
-            + train_rows() + pod_rows() + runtime_rows())
+    if sys.argv[1:] == ["sharded"]:
+        rows = sharded_rows()
+    else:
+        rows = (convnet_rows() + kernel_rows() + controller_rows() + attention_rows()
+                + transformer_rows() + ssd_rows() + gmm_rows() + route_rows() + family_rows()
+                + gradient_rows() + cascade_rows() + costmodel_rows() + oneshot_rows()
+                + train_rows() + pod_rows() + runtime_rows() + sharded_rows())
     print("| Module or kernel | Test | Tolerance | Max error measured | Device |")
     print("|---|---|---|---|---|")
     for what, test, tol, err in rows:
