@@ -191,11 +191,25 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                bitwise. It prints the backend, the collectives and bytes
                staged, the walls and per-rank peak memory (not a scaling
                figure: the ranks time-share one card);
-20. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+20. dryrun   — in a process of its own, the dry run (``launch.dryrun``):
+               its CLI on the 16 x 16 fake world at ``DRYRUN_CELLS`` (full
+               width, fake CUDA tensors, the kernels' custom ops; each
+               status the reference's, each ok cell's roofline terms and
+               useful-FLOPs ratio printed); its trace of the serve phases'
+               three prefills (8 x 1024, bf16 weights; K2, K3, K4 and K2) at world 1
+               against the same prefills run on the card under the same
+               counter and ``FlopCounterMode`` (FLOPs and bytes equal, the
+               predicted peak within 20% of ``max_memory_allocated``), with
+               a planted control (K4's FLOP formula zeroed) that must fail;
+               and its trace of the parallel phase's qwen3 gradient pass on
+               a fake 8-rank CUDA world against rank 0's readings of the
+               real pass (collectives per kind, FLOPs and bytes equal, the
+               peak within 20%);
+21. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Each main path (search, runtime, serve_tier and oneshot for ibn_pointwise; serve, serve_ssm,
 serve_moe, train and parallel for flash_attention, ssd_scan and gmm; mesh, which
-must launch none of them) runs with every
+must launch none of them, as the dryrun phase's traces must not) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
 non-zero; nothing falls back to the CPU. TF32 is off for matmuls and cuDNN
 convolutions.
@@ -239,7 +253,7 @@ from repro_torch.kernels import flash_attention, gmm, ibn_conv, ssd_scan  # noqa
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
-from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
 from repro_torch.parallel import sharding, staging  # noqa: E402
@@ -3359,14 +3373,20 @@ def _parallel_dense(pc, shared: dict) -> dict:
     params = sharding.distribute_tree(whole, sspecs["params"], pc.mesh)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    comm = CommDebugMode()
-    with comm:
+    # the dry run's counter reads the rank's own local ops (the dryrun phase
+    # holds its trace of this pass against them)
+    comm, counter = CommDebugMode(), dryrun.StepCounter()
+    counter.arguments((params, batch))
+    with comm, counter:
         (loss, _, grads), grad_ms = _sync_ms(
             lambda: steps.value_and_grad(params, batch, run, pc))
+    counter.outputs((loss, grads))
     res = {"loss": loss.full_tensor().item(), "grad_ms": grad_ms,
            "grad_errs": _local_errs(grads, want, shared["grad_scales"]),
            "collectives": {str(k).split(".")[-1]: v for k, v in
-                           comm.get_comm_counts().items()}}
+                           comm.get_comm_counts().items()},
+           "counts": counter.result(), "memory": counter.memory_analysis(),
+           "grad_peak": torch.cuda.max_memory_allocated()}
     # the sharded update; the optimizer clips ``grads`` in place, so each
     # leaf's reference below steps from the same clipped gradient
     new, _, _ = opt.step(tree_map(torch.clone, params), grads, opt.init(params))
@@ -3621,6 +3641,8 @@ def parallel_phase(card: str) -> dict:
         "update_err": update_err, "fault_grad_err": fault_err, "k2_launches": k2,
         "grad_ms": [d["grad_ms"] for d in dense], "step_ms": [d["step_ms"] for d in dense],
         "peak_gb": [d["peak_gb"] for d in dense], "collectives": dense[0]["collectives"],
+        "grad_peak": [d["grad_peak"] for d in dense], "grad_counts": dense[0]["counts"],
+        "grad_memory": dense[0]["memory"],
         "ep_err": max(m["ep_err"] for m in moes), "tpe_err": max(m["tpe_err"] for m in moes),
         "ep_fault_err": min(m["fault_err"] for m in moes),
         "ep_aux": moes[0]["ep_aux"], "ep_aux_want": float(np.mean(ep_auxes)),
@@ -3682,9 +3704,223 @@ def parallel_phase(card: str) -> dict:
     return out
 
 
+# the dry run's CLI on the production mesh (16 x 16 fake ranks, fake CUDA
+# tensors) at these cells: full width, one of each family's paths that fits
+# the phase (the cells' traces take the host tens of seconds each at
+# train_4k; PERF.md has every cell's run), and a skipped cell's status
+DRYRUN_CELLS = (("qwen3_1_7b", "decode_32k"), ("mamba2_370m", "prefill_32k"),
+                ("qwen2_moe_a2_7b", "decode_32k"), ("qwen3_1_7b", "long_500k"))
+# the real single-rank prefills the trace is held against: the serve
+# phases' (8 x 1024, bf16 weights and compute), attention on K2 where the
+# serve phase runs it
+DRYRUN_PREFILLS = ((SERVE_ARCH, "flash_pallas"), (SSM_ARCH, None), (MOE_ARCH, "flash_pallas"))
+DRYRUN_PEAK_TOL = 0.2  # predicted peak against max_memory_allocated, relative
+DRYRUN_DEADLINE_S = 600
+
+
+def _dryrun_cells(card: str) -> dict:
+    """(a) ``python -m repro_torch.launch.dryrun`` (its ``main``) at each of
+    ``DRYRUN_CELLS``: the status, and an ok cell's roofline terms."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as d:
+        for arch, shape in DRYRUN_CELLS:
+            t = time.perf_counter()
+            dryrun.main(["--arch", arch, "--shape", shape, "--device", DEV, "--out", d])
+            rec = json.loads((Path(d) / f"{arch}_{shape}_single.json").read_text())
+            want = configs.applicable_shapes(configs.get(arch))[shape]
+            assert rec["status"] == want, (arch, shape, rec["status"], want)
+            row = {"status": rec["status"], "s": time.perf_counter() - t}
+            if want == "ok":
+                rl = rec["roofline"]
+                row.update({k: rl[k] for k in ("compute_s", "memory_s", "collective_s",
+                                               "dominant", "useful_flops_ratio",
+                                               "roofline_fraction")},
+                           lower_s=rec["lower_s"], memory=rec["memory_analysis"],
+                           flops=rec["cost_analysis"]["flops"],
+                           reconstructed_flops=rec["reconstruction"]["flops"],
+                           collectives=rec["collectives"]["counts"])
+                assert 0 < rl["useful_flops_ratio"] <= 1.05, rl
+                print(f"dryrun {arch} {shape} 16x16: compute {1e3 * rl['compute_s']:.3f} ms, "
+                      f"memory {1e3 * rl['memory_s']:.3f} ms, collective "
+                      f"{1e3 * rl['collective_s']:.3f} ms ({rl['dominant']}), useful-FLOPs "
+                      f"ratio {rl['useful_flops_ratio']:.4f}; trace {rec['lower_s']:.1f} s, cell "
+                      f"{row['s']:.1f} s  [the pod roofline's V5E terms; traced on {card}]",
+                      flush=True)
+            else:
+                print(f"dryrun {arch} {shape}: {rec['status']}", flush=True)
+            out[f"{arch} {shape}"] = row
+    return out
+
+
+def _prefill_run(arch: str, impl) -> RunConfig:
+    """The serve phase's prefill of ``arch`` with bf16 weights (qwen2-moe's
+    fp32 ones, 57 GB, leave too little of the card beside this process's
+    parent)."""
+    extra = {} if impl is None else {"model_attn_impl": impl}
+    run = configs.make_run(arch, "decode_32k", model_param_dtype="bfloat16", **extra)
+    return run.replace(shape=ShapeConfig("prefill", PROMPT, SERVE_BATCH, "prefill"))
+
+
+def _dryrun_prefill(card: str, arch: str, impl) -> dict:
+    """(b) The trace of one prefill at world 1 against the same prefill run
+    on the card under the same counter (and torch's own FlopCounterMode):
+    FLOPs and bytes equal, the peak within DRYRUN_PEAK_TOL; the trace
+    launches nothing, the real run each kernel of its path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    run = _prefill_run(arch, impl)
+    cfg = run.model
+    reset_counts()
+    t = time.perf_counter()
+    pred = dryrun._measure(run, None, want_mem=True, device=DEV)
+    trace_s = time.perf_counter() - t
+    assert not any(launch_counts().values()), launch_counts()
+    params = api.init(0, cfg, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT), generator=gen,
+                                     device=DEV, dtype=torch.int32)}
+    step = steps.make_prefill_step(run)[0]
+    step(params, batch)  # the first call loads the libraries and their workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    counter, flop = dryrun.StepCounter(), FlopCounterMode(display=False)
+    counter.arguments((params, batch))
+    with flop, counter:
+        logits = step(params, batch)
+    counter.outputs(logits)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    del logits, params
+    torch.cuda.empty_cache()
+    mem = pred["memory_analysis"]
+    want_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    res = {"flops": pred["flops"], "real_flops": counter.flops,
+           "torch_flops": flop.get_total_flops(), "bytes": pred["bytes"],
+           "real_bytes": counter.bytes, "peak": want_peak, "real_peak": peak,
+           "peak_err": abs(want_peak - peak) / peak, "launches": launches,
+           "trace_s": trace_s, "memory": mem, "real_memory": counter.memory_analysis()}
+    print(f"dryrun prefill {arch} ({cfg.attn_impl}) {SERVE_BATCH} x {PROMPT}, world 1: FLOPs "
+          f"{res['flops']:.6e} traced / {res['real_flops']:.6e} run (FlopCounterMode "
+          f"{res['torch_flops']:.6e}); bytes {res['bytes']:.6e} / {res['real_bytes']:.6e}; peak "
+          f"{want_peak / 1e9:.3f} GB predicted / {peak / 1e9:.3f} GB max_memory_allocated "
+          f"(err {res['peak_err']:.3f}); launches {launches}; trace {trace_s:.1f} s  [{card}]",
+          flush=True)
+    assert res["flops"] == res["real_flops"] == res["torch_flops"] > 0, res
+    assert res["bytes"] == res["real_bytes"], res
+    assert res["peak_err"] <= DRYRUN_PEAK_TOL, res
+    assert launches, f"the real prefill of {arch} launched no kernel"
+    return res
+
+
+def _dryrun_control(card: str, real_flops: float) -> float:
+    """The planted control: qwen2-moe's prefill traced with K4's FLOP
+    formula replaced by zero must fail check (b). Returns the FLOPs it
+    traced."""
+    from torch.utils.flop_counter import flop_registry
+
+    packet = torch.ops.repro_torch.gmm
+    orig = flop_registry[packet]
+    flop_registry[packet] = lambda *args, **kwargs: 0
+    try:
+        bad = dryrun._measure(_prefill_run(MOE_ARCH, "flash_pallas"), None, device=DEV)["flops"]
+    finally:
+        flop_registry[packet] = orig
+    print(f"dryrun control: qwen2-moe's prefill traced with K4's FLOP formula zeroed reads "
+          f"{bad:.6e} FLOPs against {real_flops:.6e} run (must differ)  [{card}]", flush=True)
+    assert bad != real_flops, "the zero-FLOP K4 control passed check (b)"
+    return bad
+
+
+def _dryrun_parallel(card: str, par: dict) -> dict:
+    """(c) The trace of the parallel phase's qwen3 gradient pass as rank 0
+    of a fake world of PARALLEL_RANKS on (2, 4), against rank 0's readings
+    of the real pass: collectives per kind (CommDebugMode and the counter),
+    FLOPs and bytes equal; the peak within DRYRUN_PEAK_TOL of the pass's
+    max_memory_allocated."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.ctx import from_mesh
+
+    cfg = _parallel_cut(SERVE_ARCH)
+    run = _parallel_run(cfg)
+    t = time.perf_counter()
+    with dryrun.fake_world(PARALLEL_RANKS):
+        mesh = make_mesh((2, 4), ("data", "model"), device=DEV)
+        pc = from_mesh(mesh)
+        _, sspecs, bspecs = steps.make_train_step(run, pc)
+        leaves = (dryrun.placed(steps.abstract_params(cfg), sspecs["params"], mesh),
+                  dryrun.placed(steps.input_specs(cfg, run.shape), bspecs, mesh))
+        pred = dryrun.trace(lambda p, b: steps.value_and_grad(p, b, run, pc), leaves, mesh,
+                            DEV, want_mem=True)
+    trace_s = time.perf_counter() - t
+    real = par["grad_counts"]
+    comm = {dryrun.COLLECTIVES[k]: v for k, v in par["collectives"].items()}
+    mem = pred["memory_analysis"]
+    want_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    peak = par["grad_peak"][0]
+    res = {"coll_counts": pred["coll_counts"], "real_coll_counts": real["coll_counts"],
+           "comm_debug_counts": comm, "flops": pred["flops"], "real_flops": real["flops"],
+           "bytes": pred["bytes"], "real_bytes": real["bytes"], "peak": want_peak,
+           "real_peak": peak, "real_peaks": par["grad_peak"],
+           "peak_err": abs(want_peak - peak) / peak, "trace_s": trace_s, "memory": mem,
+           "real_memory": par["grad_memory"]}
+    print(f"dryrun parallel qwen3-1.7B x{PARALLEL_LAYERS[SERVE_ARCH]} gradient pass on (2, 4), "
+          f"rank 0 of {PARALLEL_RANKS}: collectives {pred['coll_counts']} traced / "
+          f"{real['coll_counts']} run (CommDebugMode {comm}); FLOPs {pred['flops']:.6e} / "
+          f"{real['flops']:.6e}; bytes {pred['bytes']:.6e} / {real['bytes']:.6e}; peak "
+          f"{want_peak / 1e9:.3f} GB predicted / {peak / 1e9:.3f} GB max_memory_allocated "
+          f"(err {res['peak_err']:.3f}); trace {trace_s:.1f} s  [{card}]", flush=True)
+    assert pred["coll_counts"] == real["coll_counts"] == comm, res
+    assert pred["flops"] == real["flops"] > 0 and pred["bytes"] == real["bytes"], res
+    assert res["peak_err"] <= DRYRUN_PEAK_TOL, res
+    return res
+
+
+def _dryrun_child(card: str, par: dict) -> dict:
+    t0 = time.perf_counter()
+    out = {"cells": _dryrun_cells(card), "prefills": {}}
+    for arch, impl in DRYRUN_PREFILLS:
+        out["prefills"][arch] = _dryrun_prefill(card, arch, impl)
+    out["control_flops"] = _dryrun_control(card, out["prefills"][MOE_ARCH]["real_flops"])
+    out["parallel"] = _dryrun_parallel(card, par)
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_phase(card: str, par: dict) -> dict:
+    """The dry run (``launch.dryrun``) on the card's path, in a process of
+    its own (it starts fake process groups and fake tensors): (a) its CLI on
+    the production mesh at ``DRYRUN_CELLS``; (b) its trace of the serve
+    phases' three prefills at world 1 against the same prefills run on the
+    card, with a planted control (K4's FLOP formula zeroed) that must fail;
+    (c) its trace of the parallel phase's qwen3 gradient pass on a fake
+    8-rank world against rank 0's readings of the real pass (``par``)."""
+    t0 = time.perf_counter()
+    # the child takes qwen2-moe's 57 GB of fp32 weights: hand back what this
+    # process caches, and what the parallel phase's ranks mapped from it
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    print(f"dryrun: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the "
+          f"card  [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as d:
+        keep = {k: par[k] for k in ("collectives", "grad_counts", "grad_memory", "grad_peak")}
+        (Path(d) / "in.json").write_text(json.dumps(keep))
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
+                               d], timeout=DRYRUN_DEADLINE_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the dryrun phase's process failed ({proc.returncode})")
+        out = json.loads((Path(d) / "out.json").read_text())
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"dryrun: {out['phase_s']:.1f} s (its process {out['child_s']:.1f} s)  [{card}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
+    ap.add_argument("--dryrun-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -3693,6 +3929,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    if args.dryrun_child:  # the dryrun phase's own process
+        d = Path(args.dryrun_child)
+        out = _dryrun_child(card, json.loads((d / "in.json").read_text()))
+        (d / "out.json").write_text(json.dumps(out, default=str))
+        return 0
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
@@ -3741,6 +3982,7 @@ def main() -> int:
     mesh = timed("mesh", mesh_phase)
     torch.cuda.empty_cache()
     par = timed("parallel", parallel_phase)
+    dry = timed("dryrun", lambda c: dryrun_phase(c, par))
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
@@ -3861,7 +4103,8 @@ def main() -> int:
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,
-             "mesh": mesh, "parallel": par, "phase_s": phase_s, "kernels": kernels},
+             "mesh": mesh, "parallel": par, "dryrun": dry, "phase_s": phase_s,
+             "kernels": kernels},
             indent=1, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_TIMEOUT_S = 600
@@ -104,6 +105,26 @@ def device_info(index: int) -> tuple[tuple[int, int], int]:
         props = torch.cuda.get_device_properties(index)
         info = DEVICES[index] = ((props.major, props.minor), props.multi_processor_count)
     return info
+
+
+def start_aligned(t: torch.Tensor, align: int = 16) -> bool:
+    """Whether ``t``'s first element lies on an ``align``-byte boundary: its
+    address on a real tensor; on a fake or meta tensor, which has none, its
+    offset into its storage (the caching allocator starts every block on
+    512 bytes), so that a shape-only trace copies what the card copies."""
+    if t.is_meta or isinstance(t, FakeTensor):
+        return t.storage_offset() * t.element_size() % align == 0
+    return t.data_ptr() % align == 0
+
+
+def traced(*tensors: torch.Tensor) -> bool:
+    """Whether a kernel's call goes through its custom op: a tensor is fake
+    or meta (a shape-only trace), or a dispatch mode is active (a tracer or
+    a counter, which sees the op as one op). Otherwise the wrapper calls the
+    op's launch directly: the dispatcher's round trip to it costs tens of µs
+    a call on the card's host (PERF.md)."""
+    return (torch._C._len_torch_dispatch_stack() > 0
+            or any(t.is_meta or isinstance(t, FakeTensor) for t in tensors))
 
 
 def require_sm90(t: torch.Tensor, kernel: str) -> int:

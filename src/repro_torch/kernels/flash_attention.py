@@ -19,7 +19,12 @@ library with a plain C interface under ``build/kernels/``, loaded with
 
 On a CPU tensor ``flash_attention`` takes the plain version
 (``ref.flash_attention_ref``); a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches.
+The launch is the custom op ``repro_torch::flash_attention``, so a tracer
+sees it as one op: on a fake or meta tensor (a shape-only trace,
+``launch.dryrun``) it runs the op's fake implementation, and
+``torch.utils.flop_counter`` counts it by ``flops``, the plain version's
+count. A call that nothing traces (``kbuild.traced``) calls the launch
+directly, without the dispatcher. ``LAUNCHES`` counts kernel launches.
 
 Gradient (``FlashAttention``): the TPU kernel has no VJP, and the reference's
 models differentiate their jnp attention, the same function. So backward
@@ -36,6 +41,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -74,7 +80,7 @@ def _library() -> ctypes.CDLL:
 def _aligned16(t: torch.Tensor) -> bool:
     """Start and (batch, head, row) strides on 16-byte boundaries."""
     size = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:3])
+    return kbuild.start_aligned(t) and all(s * size % 16 == 0 for s in t.stride()[:3])
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -82,9 +88,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """One launch of the kernel. q (B, H, Sq, hd), k and v (B, KV, Skv, hd),
     any strides with unit stride along hd. Returns (B, H, Sq, hd) as a view
     of a new (B, Sq, H, hd) tensor, the model's layout. Raises on anything
-    the kernel does not take."""
-    global LAUNCHES
-    kbuild.require_sm90(q, "flash_attention")
+    the kernel does not take. The launch itself (``_launch``) is the custom
+    op ``repro_torch::flash_attention``, called as one where
+    ``kbuild.traced`` says so; on a fake or meta tensor the op runs its fake
+    implementation, which launches nothing, after the same checks and
+    copies as on the card."""
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the flash_attention kernel runs on CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -109,8 +119,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"strides {t.stride()}")
     if q.dtype == torch.bfloat16:  # TMA's 16-byte alignment
         q, k, v = (t if _aligned16(t) else t.contiguous() for t in (q, k, v))
-    out = torch.empty((b, sq, h, hd), device=q.device, dtype=q.dtype).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    launch_op = torch.ops.repro_torch.flash_attention if kbuild.traced(q, k, v) else _launch
+    return launch_op(q, k, v, causal).transpose(1, 2)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The kernel's launch on ``launch``'s operands: a new contiguous
+    (B, Sq, H, hd) tensor, the model's layout."""
+    global LAUNCHES
+    kbuild.require_sm90(q, "flash_attention")
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, hd), device=q.device, dtype=q.dtype)
+    os_ = out.stride()  # written as its (B, H, Sq, hd) view
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v) for s in t.stride()[:3]),
+                                       os_[0], os_[2], os_[1])
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
@@ -121,6 +144,25 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::flash_attention", _launch, mutates_args=(),
+                              device_types="cuda")
+
+
+@_op.register_fake
+def _(q, k, v, causal):
+    b, h, sq, hd = q.shape
+    return q.new_empty((b, sq, h, hd))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flops(q_shape, k_shape, v_shape, causal: bool, *args, out_shape=None, **kwargs) -> int:
+    """What the plain version (``ref.flash_attention_ref``: the scores and
+    their product with v, every position, the mask applied after) counts:
+    4·B·H·Sq·Skv·hd."""
+    b, h, sq, hd = q_shape
+    return 4 * b * h * sq * k_shape[2] * hd
 
 
 class FlashAttention(torch.autograd.Function):

@@ -26,7 +26,13 @@ library with a plain C interface under ``build/kernels/``, loaded with
 ``ctypes``. Nothing is built when the module is imported.
 
 On a CPU tensor ``gmm`` takes the plain version (``ref.gmm_ref``); a CUDA
-tensor launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+tensor launches the kernel or raises. The launch is the custom op
+``repro_torch::gmm``, so a tracer sees it as one op: on a fake or meta
+tensor (a shape-only trace, ``launch.dryrun``) it runs the op's fake
+implementation, and ``torch.utils.flop_counter`` counts it by ``flops``,
+the plain version's count. A call that nothing traces (``kbuild.traced``)
+calls the launch directly, without the dispatcher. ``LAUNCHES`` counts
+kernel launches.
 
 Gradient (``Gmm``): the TPU kernel has no VJP, and the reference's MoE
 layer differentiates its einsums, whose gradient is two more grouped
@@ -43,6 +49,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -76,9 +83,13 @@ def _library() -> ctypes.CDLL:
 
 def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel into a new contiguous (E, C, F) tensor.
-    Raises on anything the kernel does not take."""
-    global LAUNCHES
-    kbuild.require_sm90(x, "gmm")
+    Raises on anything the kernel does not take. The launch itself
+    (``_launch``) is the custom op ``repro_torch::gmm``, called as one
+    where ``kbuild.traced`` says so; on a fake or meta tensor the op runs its
+    fake implementation, which launches nothing, after the same checks and
+    operand copies as on the card."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the gmm kernel runs on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"gmm takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
@@ -95,6 +106,18 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"got {w.dtype} on {w.device}")
     if x.dtype == torch.bfloat16:
         x, w = _tma_operands(x, w)
+    launch_op = torch.ops.repro_torch.gmm if kbuild.traced(x, w) else _launch
+    y = launch_op(x, w, d, f)
+    return y if w.shape[2] == f else y[..., :f].contiguous()
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, d: int, f: int) -> torch.Tensor:
+    """The kernel's launch on ``launch``'s operands: y (E, C, w's F) of the
+    products over the first ``d`` entries of D (``f``, w's unpadded F, is
+    for the FLOP count)."""
+    global LAUNCHES
+    kbuild.require_sm90(x, "gmm")
+    e, c = x.shape[:2]
     fp = w.shape[2]
     y = torch.empty((e, c, fp), device=x.device, dtype=x.dtype)
     strides = (ctypes.c_longlong * 6)(*x.stride(), *w.stride())
@@ -106,7 +129,22 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return y if fp == f else y[..., :f].contiguous()
+    return y
+
+
+_op = torch.library.custom_op("repro_torch::gmm", _launch, mutates_args=(), device_types="cuda")
+
+
+@_op.register_fake
+def _(x, w, d, f):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm)
+def flops(x_shape, w_shape, d: int, f: int, *args, out_shape=None, **kwargs) -> int:
+    """What the plain version (``ref.gmm_ref``: one ``bmm``) counts:
+    2·E·C·D·F."""
+    return 2 * x_shape[0] * x_shape[1] * d * f
 
 
 def _tma_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +163,7 @@ def _fits_bf16_body(t: torch.Tensor) -> bool:
     the last axis, the other strides positive multiples of 8 elements (16
     bytes) and the start 16-byte aligned."""
     return (t.stride(2) == 1 and all(s > 0 and s % 8 == 0 for s in t.stride()[:2])
-            and t.data_ptr() % 16 == 0)
+            and kbuild.start_aligned(t))
 
 
 def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -138,8 +176,8 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One grouped product: the plain version for a CPU tensor, the kernel
-    else."""
+    """One grouped product: the plain version for a CPU tensor (real or
+    fake), the kernel's op else."""
     if x.device.type == "cpu":
         return ref.gmm_ref(x, w)
     return launch(x, w)

@@ -1,8 +1,13 @@
 """Dispatch for the model code, which calls these and never a kernel
 directly. A tensor on the CPU takes the plain version (``ref``); a CUDA
 tensor launches the hand-written kernel, or raises when it cannot (no
-``nvcc``, a failed build, a device below compute capability 9.0). Nothing
-falls back from the kernel to the plain version. A DTensor raises
+``nvcc``, a failed build, a device below compute capability 9.0). A fake
+CUDA tensor or a meta tensor (a shape-only trace, ``launch.dryrun``) takes
+the kernel's custom op (``repro_torch::flash_attention``, ``::ssd_scan``,
+``::gmm``), which then runs its fake implementation: the kernel's outputs'
+shapes, dtypes and strides, with nothing launched; ``ibn_pointwise`` takes
+real tensors only. Nothing falls back from the kernel to the plain
+version. A DTensor raises
 ``TypeError``: sharded model code hands the kernels each rank's local
 tensors (``parallel.ctx.shard_map``). Counterpart of
 ``repro/kernels/ops.py``."""
@@ -43,8 +48,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset``/``kv_len`` against a preallocated cache, goes to
     ``models.layers.chunked_attention``, as in the reference."""
     _local("flash_attention", q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not {q.device}")
     out = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                  causal=causal)
     return out.transpose(1, 2)
@@ -56,8 +61,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     B/C (B,S,G,N) -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) fp32),
     in chunks of ``min(chunk, S)`` positions as ``models.ssm`` takes them."""
     _local("ssd_scan", x, dt, A, B, C)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cpu, cuda or meta, not {x.device}")
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
 
 
@@ -65,6 +70,6 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The grouped matmul ``y[e] = x[e] @ w[e]``: x (E,C,D), w (E,D,F) ->
     (E,C,F) in x's dtype, fp32 accumulation."""
     _local("gmm", x, w)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"gmm runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"gmm runs on cpu, cuda or meta, not {x.device}")
     return _gmm.gmm(x, w)

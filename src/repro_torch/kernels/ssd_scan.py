@@ -28,8 +28,14 @@ library with a plain C interface under ``build/kernels/``, loaded with
 ``ctypes``. Nothing is built when the module is imported.
 
 On a CPU tensor ``ssd_scan`` takes the plain version (``ref.ssd_chunked``);
-a CUDA tensor launches the kernel or raises. There is no initial state: the
-TPU kernel starts from zeros. ``LAUNCHES`` counts kernel launches.
+a CUDA tensor launches the kernel or raises. The launch is the custom op
+``repro_torch::ssd_scan``, so a tracer sees it as one op: on a fake or meta
+tensor (a shape-only trace, ``launch.dryrun``) it runs the op's fake
+implementation, and ``torch.utils.flop_counter`` counts it by ``flops``,
+the plain version's count. A call that nothing traces (``kbuild.traced``)
+calls the launch directly, without the dispatcher. There is no initial
+state: the TPU kernel starts from zeros. ``LAUNCHES`` counts kernel
+launches.
 
 Gradient (``SsdScan``): the TPU kernel has no VJP, and the reference's
 Mamba2 mixer differentiates its jnp chunked scan. So backward recomputes
@@ -49,6 +55,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.common import ceil_div, round_up
 from repro_torch.kernels import build as kbuild
@@ -172,7 +179,7 @@ def _tma_strides(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
     ``t`` (B, S, heads, inner) through: each on 16 bytes, and the start too;
     an axis of one element takes any such stride. None when ``t`` has none."""
     align = 16 // t.element_size()
-    if t.data_ptr() % 16 or t.stride(3) != 1:
+    if not kbuild.start_aligned(t) or t.stride(3) != 1:
         return None
     out = []
     for axis in range(3):
@@ -198,9 +205,13 @@ def _operand(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
 def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
            C: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel. Returns (y, final_state) as new contiguous
-    tensors. Raises on anything the kernel does not take."""
-    global LAUNCHES
-    sms = kbuild.require_sm90(x, "ssd_scan")
+    tensors. Raises on anything the kernel does not take. The launch itself
+    (``_launch``) is the custom op ``repro_torch::ssd_scan``, called as one
+    where ``kbuild.traced`` says so; on a fake or meta tensor the op runs
+    its fake implementation, which launches nothing, after the same checks
+    and operand copies as on the card."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the ssd_scan kernel runs on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16 x, got {x.dtype}")
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4 or B.shape != C.shape:
@@ -231,17 +242,29 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan needs unit stride along {what}'s last dim, got "
                              f"strides {t.stride()}")
-    pl = plan(b, s, h, p, n, q, x.dtype, sms)
-    xk, sx = _operand(x)
-    bk, sb = _operand(B)
-    ck, sc = _operand(C)
+    (xk, _), (bk, _), (ck, _) = _operand(x), _operand(B), _operand(C)
+    launch_op = torch.ops.repro_torch.ssd_scan if kbuild.traced(xk, dt, A, bk, ck) else _launch
+    return launch_op(xk, dt, A, bk, ck, q)
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on ``launch``'s operands (x, B and C readable by
+    TMA maps; ``chunk`` already ``min(chunk, S)``): new contiguous y and
+    final state."""
+    global LAUNCHES
+    sms = kbuild.require_sm90(x, "ssd_scan")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pl = plan(b, s, h, p, n, chunk, x.dtype, sms)
     y = torch.empty((b, s, h, p), device=x.device, dtype=x.dtype)
     state = torch.empty((b, h, p, n), device=x.device, dtype=torch.float32)
-    strides = (ctypes.c_longlong * 15)(*sx, *y.stride()[:3], *dt.stride(), *sb, *sc)
+    strides = (ctypes.c_longlong * 15)(*_tma_strides(x), *y.stride()[:3], *dt.stride(),
+                                       *_tma_strides(B), *_tma_strides(C))
     lib = _library()
     index = x.device.index
-    args = (_DTYPES[x.dtype], xk.data_ptr(), dt.data_ptr(), A.data_ptr(), bk.data_ptr(),
-            ck.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, q, pl.cluster,
+    args = (_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, chunk, pl.cluster,
             pl.stages, pl.cbufs, strides)
     if index == torch.cuda.current_device():
         err = lib.ssd_scan_launch(*args, torch.cuda.current_stream(index).cuda_stream)
@@ -252,6 +275,28 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return y, state
+
+
+_op = torch.library.custom_op("repro_torch::ssd_scan", _launch, mutates_args=(),
+                              device_types="cuda")
+
+
+@_op.register_fake
+def _(x, dt, A, B, C, chunk):
+    b, s, h, p = x.shape
+    return x.new_empty((b, s, h, p)), x.new_empty((b, h, p, B.shape[3]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk: int, *args, out_shape=None,
+          **kwargs) -> int:
+    """What the plain version (``ref.ssd_chunked``) counts: per chunk of Q
+    positions, its four products (C·Bᵀ, the scores with x, C with the
+    carried state, the state's update), 2·B·H·Q·(Q·N + Q·P + 2·P·N)."""
+    b, s, h, p = x_shape
+    n = b_shape[3]
+    q = min(chunk, s)
+    return ceil_div(s, q) * 2 * b * h * q * (q * n + q * p + 2 * p * n)
 
 
 class SsdScan(torch.autograd.Function):

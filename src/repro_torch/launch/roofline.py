@@ -9,10 +9,10 @@
 all-gather / all-reduce / reduce-scatter / all-to-all / collective-permute
 instruction's result shape (local, since the module is the per-device SPMD
 program) plus its replica-group size, converted to wire bytes with the
-standard ring formulas. ``analyze`` reads one dry-run record (its
-``cost_analysis`` and ``collectives``); the dry run that writes such records
-is still to be ported (ROADMAP Queue 1 item 5). The text
-parsing and the arithmetic are copies of the reference's.
+standard ring formulas (``wire_bytes``, which the port's dry run,
+``launch.dryrun``, shares). ``analyze`` reads one dry-run record (its
+``cost_analysis`` and ``collectives``). The text parsing and the arithmetic
+are copies of the reference's.
 
 ``count_params`` counts the elements of ``train.steps.abstract_params``
 (meta tensors, nothing allocated), and ``model_flops`` is the reference's
@@ -91,6 +91,26 @@ class CollectiveStats:
         }
 
 
+def wire_bytes(op: str, b, g: int):
+    """Per-chip bytes on the wire of one collective ``op`` (an HLO name:
+    all-reduce, all-gather, reduce-scatter, all-to-all or
+    collective-permute) whose local result is ``b`` bytes, over a group of
+    ``g``: the ring model. ``parse_collectives`` and the dry run's trace
+    (``launch.dryrun``) both count by it."""
+    if op == "all-reduce":
+        return 2 * b * (g - 1) / max(g, 1)
+    if op == "all-gather":
+        # result is the gathered (local-full) tensor; each chip receives
+        # (g-1)/g of it
+        return b * (g - 1) / max(g, 1)
+    if op == "reduce-scatter":
+        # result is the scattered shard; operand = g * result
+        return b * (g - 1)
+    if op == "all-to-all":
+        return b * (g - 1) / max(g, 1)
+    return b  # collective-permute
+
+
 def parse_collectives(hlo_text: str) -> CollectiveStats:
     counts: dict = {}
     rbytes: dict = {}
@@ -104,19 +124,7 @@ def parse_collectives(hlo_text: str) -> CollectiveStats:
             continue
         b = _shape_bytes(shape_str)
         g = _group_size(line)
-        if op == "all-reduce":
-            wire = 2 * b * (g - 1) / max(g, 1)
-        elif op == "all-gather":
-            # result is the gathered (local-full) tensor; each chip receives
-            # (g-1)/g of it
-            wire = b * (g - 1) / max(g, 1)
-        elif op == "reduce-scatter":
-            # result is the scattered shard; operand = g * result
-            wire = b * (g - 1)
-        elif op == "all-to-all":
-            wire = b * (g - 1) / max(g, 1)
-        else:  # collective-permute
-            wire = b
+        wire = wire_bytes(op, b, g)
         counts[op] = counts.get(op, 0) + 1
         rbytes[op] = rbytes.get(op, 0) + b
         wbytes[op] = wbytes.get(op, 0) + wire

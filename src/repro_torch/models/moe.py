@@ -45,6 +45,13 @@ def capacity_for(n_tokens: int, cfg: ModelConfig) -> int:
     return round_up(max(c, 8), 8)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) without its range check, which reads
+    the indices back to the host (a sync on the card) and which a
+    shape-only trace (``launch.dryrun``) replaces by this comparison."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).long()
+
+
 def route(x2d: torch.Tensor, wr: torch.Tensor, cfg: ModelConfig):
     """Returns (top_w (N,k) fp32, top_e (N,k) int64, aux_loss scalar)."""
     logits = x2d.float() @ wr.float()  # (N, E)
@@ -53,7 +60,7 @@ def route(x2d: torch.Tensor, wr: torch.Tensor, cfg: ModelConfig):
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance aux loss
     e = cfg.num_experts
-    assign = F.one_hot(top_e[:, 0], e).float()  # primary expert
+    assign = _one_hot(top_e[:, 0], e).float()  # primary expert
     aux = e * torch.sum(assign.mean(dim=0) * probs.mean(dim=0))
     return top_w, top_e, aux
 
@@ -68,7 +75,7 @@ def dispatch(x2d, top_e, num_experts: int, capacity: int, e_start: int, e_count:
     n, k = top_e.shape
     d = x2d.shape[-1]
     flat_e = top_e.reshape(-1)  # (N*k,), token-major
-    onehot = F.one_hot(flat_e, num_experts)
+    onehot = _one_hot(flat_e, num_experts)
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=1)  # (N*k,)
     keep = (flat_e >= e_start) & (flat_e < e_start + e_count) & (pos < capacity)
     dest = torch.where(keep, (flat_e - e_start) * capacity + pos,

@@ -39,9 +39,9 @@ def test_port_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     n_modules, n_scripts, leaked = out.stdout.split(maxsplit=2)
     # every module and script the port has (the serve tier's 4 modules,
-    # torch_runtime_serve.py, and the parallel substrate's 5 modules with
-    # launch.mesh included); one that drops out shows
-    assert int(n_modules) >= 86
+    # torch_runtime_serve.py, the parallel substrate's 5 modules with
+    # launch.mesh included, and launch.dryrun); one that drops out shows
+    assert int(n_modules) >= 87
     assert int(n_scripts) >= 3
     assert leaked.strip() == "[]"
 

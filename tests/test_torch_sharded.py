@@ -253,6 +253,44 @@ def test_sharded_train_step_matches_reference(world, name):
     assert param_err < PARAM_TOL
 
 
+def dry_run_trace(world, name):
+    """The dry run's shape-only trace (``launch.dryrun._measure``) of one
+    train case's step as rank 0 of a fake (2, 4) CPU world; and at world 1."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.ctx import from_mesh
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_sharded_world
+
+    case = world[0]["train"][name]
+    run = torch_sharded_world.train_run(ModelConfig(**case["cfg"]), case["microbatches"], B, S)
+    with dryrun.fake_world(8):
+        got = dryrun._measure(run, from_mesh(make_mesh((2, 4), ("data", "model"),
+                                                       device="cpu")))
+    return got, dryrun._measure(run, None, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_dry_run_trace_reads_what_the_worlds_step_did(world, name):
+    """The trace of the train step reads what rank 0 of the gloo world read
+    on its real step: the collectives per kind that DTensor's CommDebugMode
+    counted on the first step, and the FLOPs, bytes and collectives (count,
+    result and wire bytes) that the dry run's own counter read on the
+    second. The 8 ranks do at least the unsharded step's FLOPs between them
+    (DTensor replicates some products over the ranks: PERF.md)."""
+    from repro_torch.launch import dryrun
+
+    got, alone = dry_run_trace(world, name)
+    real = world[1][0]["train"][name]
+    assert got["coll_counts"] == {dryrun.COLLECTIVES[k]: v
+                                  for k, v in real["comm_counts"].items()}
+    for key in ("flops", "bytes", "coll_counts", "coll_result", "coll_wire"):
+        assert got[key] == real["step_counts"][key], key
+    assert got["flops"] > 0 and 8 * got["flops"] >= alone["flops"]
+
+
 def decode_err(world):
     """The worst step of the sharded decode, / max |logit|."""
     inp, res = world

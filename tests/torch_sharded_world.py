@@ -6,14 +6,17 @@ runs every sharded check over meshes (2, 4), (4, 2) and (8,), and returns
 numpy results: rank 0 the whole ones, every rank what only it holds."""
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 
 import numpy as np
 import torch
+from torch.distributed.tensor.debug import CommDebugMode
 
 from repro_torch.common import tree_from_numpy, tree_map, tree_paths
 from repro_torch.config import MeshConfig, ModelConfig, RunConfig, ShapeConfig, TrainConfig
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import api
 from repro_torch.parallel import compression, pipeline, sharding
@@ -68,8 +71,14 @@ def train(pc, case: dict, n_steps: int) -> tuple[dict, dict]:
         {k: torch.from_numpy(v) for k, v in case["batch"].items()}, bspecs, pc.mesh)
     loss, _, grads = steps.value_and_grad(state["params"], batch, run, pc)
     out = {"loss": float(full(loss)), "grads": full_tree(grads)}
-    for _ in range(n_steps):
-        state, metrics = step(state, batch)
+    # the collectives of the first step as DTensor's CommDebugMode reads
+    # them, and the second step as the dry run's counter reads it
+    comm, counter = CommDebugMode(), dryrun.StepCounter()
+    for i in range(n_steps):
+        with comm if i == 0 else counter if i == 1 else contextlib.nullcontext():
+            state, metrics = step(state, batch)
+    out["comm_counts"] = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    out["step_counts"] = counter.result()
     out["params"] = full_tree(state["params"])
     out["metrics"] = {k: float(v) for k, v in metrics.items()}
     return out, (state, sspecs)
