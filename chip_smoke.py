@@ -95,7 +95,10 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                kernel, the plain version and
                ``scaled_dot_product_attention`` there (on the model's views,
                and once contiguous), at S 4096, and at zamba2-7b's,
-               hubert-xlarge's and gemma-2b's heads;
+               hubert-xlarge's and gemma-2b's heads; holds the backward
+               kernels against the plain backward (fp32 and bf16, every
+               head_dim, causal sq != skv both ways, ragged lengths, the
+               served shape), each twice bitwise the same;
 11. ssd      — holds ``ssd_scan`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, mamba2-370m's prefill shape and a
                ragged S 1000, zamba2-7b's H 112 N 64, and the cluster's edges
@@ -107,7 +110,10 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                recurrence; times kernel and plain version (no single PyTorch
                call computes the scan) as the host issues them and on the
                device alone (CUDA graphs), at mamba2's and zamba2's shapes,
-               and the wrapper's host µs per call;
+               and the wrapper's host µs per call; holds the backward kernels
+               against the plain backward (fp32 and bf16) at the same shapes,
+               with and without the final state's cotangent, each twice
+               bitwise the same;
 12. gmm      — holds ``gmm`` against its plain version (fp32 and bf16) at
                tests/test_kernels.py's shapes, ragged edges, strided views, the
                bf16 body's edges (C 1 to 8192, D off the K steps, F under one
@@ -141,14 +147,17 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
 17. train    — the LLM families' training step at full width, 8 x 1024
                tokens of the LM stream a step, AdamW as ``launch/train.py``
                sets it: qwen3-1.7B (28 layers, ``flash_pallas``,
-               remat="full": exactly 56 ``flash_attention`` launches a step,
-               its loss falling by 0.3 over 30 steps; one step each at
-               remat="dots" and microbatches=2), mamba2-370m (48 layers:
-               exactly 48 ``ssd_scan`` launches) and qwen2-moe-a2.7b cut to
-               2 layers (exactly 18 ``gmm`` and 2 ``flash_attention``
-               launches); ms per step, tokens/s, peak memory, model TFLOP/s
-               and the device time by kernel and in the plain-VJP
-               backwards' and the optimizer's profiler ranges; the step card
+               remat="full": exactly 112 ``flash_attention`` launches a step,
+               56 forward and 56 of its backward kernels, its loss falling by
+               0.3 over 30 steps; one step each at remat="dots" and
+               microbatches=2), mamba2-370m (48 layers: exactly 288
+               ``ssd_scan`` launches, 48 forward and 240 backward) and
+               qwen2-moe-a2.7b cut to 2 layers (exactly 18 ``gmm`` and 6
+               ``flash_attention`` launches); ms per step, tokens/s, peak
+               memory, model TFLOP/s and the device time by kernel and in the
+               backwards' and the optimizer's profiler ranges; each backward
+               alone at the step's shape against the plain VJP (and, for
+               attention, ``scaled_dot_product_attention``'s); the step card
                against CPU at the llm cuts in fp32 (loss, every gradient
                leaf, one AdamW update) with two planted faults the
                gradient limit must fail; the loop resumed after an injected
@@ -251,8 +260,10 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data.synthetic import LMStream  # noqa: E402
 from repro_torch.kernels import flash_attention, gmm, ibn_conv, ssd_scan  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
-                                     ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_bwd, flash_attention_ref,  # noqa: E402
+                                     gmm_ref, ibn_pointwise_ref, ssd_chunked, ssd_chunked_bwd,
+                                     ssd_scan_ref)
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.models import api, moe, transformer  # noqa: E402
 from repro_torch.models import convnets as C  # noqa: E402
@@ -329,6 +340,17 @@ INT8_TOL = 0.1
 # another order, which moves exp(cs_i - cs_j) by ~1e-5 where |cs| reaches
 # hundreds; bf16 rounds y to 8 bits of mantissa. The state is fp32 in both.
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# the backward kernels against the plain backwards, each gradient over
+# max(1, its largest |plain value|) (absolute below 1: a single query row's
+# dq and dk are 0 up to rounding): fp32 sums in another order; bf16 rounds
+# the products' operands (P and dS, the scores and the state terms) to bf16
+# where the plain backward keeps fp32, and the gradients to 8 bits
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1.0)).item()
 # the plain chunked version against the sequential recurrence, absolute, inputs
 # as tests/test_kernels.py draws them (its tolerance)
 SEQ_TOL = 2e-3
@@ -370,6 +392,9 @@ MOE_CHECK_LEN = 256
 K1_SYMBOL = "ibn_pw"
 KERNELS = {"ibn_pointwise": ibn_conv, "flash_attention": flash_attention,
            "ssd_scan": ssd_scan, "gmm": gmm}
+# the backward kernels, counted apart too (their launches are also in their
+# module's LAUNCHES)
+BACKWARDS = {"flash_attention_bwd": flash_attention, "ssd_scan_bwd": ssd_scan}
 # the mesh phase: one dense, the ssm and one moe config, as the reference's
 # mesh search prices them
 # the runtime phase: the constraint-modes preset's 4 scenarios, the search
@@ -405,10 +430,13 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a main path."""
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
+    for mod in BACKWARDS.values():
+        mod.BACKWARD_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    return {**{name: mod.LAUNCHES for name, mod in KERNELS.items()},
+            **{name: mod.BACKWARD_LAUNCHES for name, mod in BACKWARDS.items()}}
 
 
 def card_line() -> str:
@@ -1347,13 +1375,15 @@ def _leaf_errs(got, want) -> list[float]:
 
 
 def _grad_errs(got, want) -> list[float]:
-    """Per leaf, max |got - want| over max |want|, both on the CPU: 0 where
-    both are all 0, inf where only ``want`` is. A step's update (lr times the
-    gradient) lies far below the parameters' rounding, so the step's
-    gradient is held leaf by leaf on its own scale."""
+    """Per leaf, max |got - want| over max |want|: 0 where both are all 0,
+    inf where only ``want`` is. A step's update (lr times the gradient) lies
+    far below the parameters' rounding, so the step's gradient is held leaf
+    by leaf on its own scale. Taken on ``got``'s device (the same IEEE
+    arithmetic as on the CPU, without the CPU's minutes at full width)."""
     errs = []
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
-        diff, scale = (g.cpu() - w).abs().max().item(), w.abs().max().item()
+        w = w.to(g.device)
+        diff, scale = (g - w).abs().max().item(), w.abs().max().item()
         errs.append(diff / scale if scale else (0.0 if diff == 0 else math.inf))
     return errs
 
@@ -1626,7 +1656,7 @@ def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool,
                     layout: str = "bshd") -> dict:
     """flash_attention against its plain version on the card."""
     q, k, v = attention_inputs(b, h, kv, sq, skv, hd, dtype, gen, layout)
-    out = flash_attention.launch(q, k, v, causal=causal)
+    out = flash_attention.launch(q, k, v, causal=causal)[0]
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
@@ -1642,7 +1672,7 @@ def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
         rec["library_err"] = (lib.float() - want.float()).abs().max().item()
-        rec["ms"] = time_ms(lambda: flash_attention.launch(q, k, v, causal=causal))
+        rec["ms"] = time_ms(lambda: flash_attention.launch(q, k, v, causal=causal)[0])
         rec["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal))
         rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
         rec["bound_bytes_ms"], rec["bound_ops_ms"] = attention_bound_parts_ms(
@@ -1664,6 +1694,54 @@ def check_attention(b, h, kv, sq, skv, hd, causal, dtype, gen, timed: bool,
                     < rec["controls"]["dropped_tile"]["row_rel_err"]):
                 raise AssertionError(f"the per-row bf16 check does not tell the controls "
                                      f"apart: {rec['controls']}")
+    return rec
+
+
+def attention_bwd_bound_parts_ms(b, h, kv, sq, skv, hd, causal,
+                                 dtype) -> tuple[float, float]:
+    """The two lower bounds of one attention backward in ms: bytes (q, k, v,
+    o, do and the fp32 log-sum-exp read once, dq, dk, dv written once) over
+    the memory rate, and its five products' 10·hd operations per unmasked
+    (q, k) pair over the peak rate for the input type."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = itemsize * (4 * b * h * sq * hd + 4 * b * kv * skv * hd) + 4 * b * h * sq
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            10.0 * hd * pairs * b * h / PEAK_FLOP_PER_S[dtype] * 1e3)
+
+
+# the backward's shapes: every head_dim at a ragged length with G 2, causal
+# with sq != skv both ways, G 2 at hd 112 and 80 over long ragged lengths,
+# cross-attention, MQA at hd 256, one row, and the served shape
+ATTN_BWD_SHAPES = ([(1, 4, 2, 130, 130, hd, True) for hd in flash_attention.HEAD_DIMS]
+                   + [(1, 4, 2, 96, 160, 32, True), (2, 4, 1, 160, 96, 16, True),
+                      (1, 8, 4, 1000, 1025, 112, True), (2, 4, 2, 300, 1025, 80, False),
+                      (1, 8, 1, 1025, 1000, 256, True), (2, 4, 2, 1, 1, 128, True),
+                      SERVE_ATTN[:4] + SERVE_ATTN[3:] + (True,)])
+
+
+def check_attention_backward(b, h, kv, sq, skv, hd, causal, dtype, gen) -> dict:
+    """The backward kernels (``launch_bwd`` on the forward kernel's output
+    and log-sum-exp) against the plain backward on the same inputs, on the
+    model's (B, S, H, hd) views; a second call must give bitwise the same
+    gradients."""
+    q, k, v = attention_inputs(b, h, kv, sq, skv, hd, dtype, gen, "bshd")
+    do = torch.randn((b, sq, h, hd), generator=gen, device=DEV).to(dtype).transpose(1, 2)
+    o, lse = flash_attention.launch(q, k, v, causal=causal, with_lse=True)
+    got = flash_attention.launch_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_attention.launch_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    rec = {"shape": (b, h, kv, sq, skv, hd), "causal": causal, "dtype": str(dtype)[6:],
+           "rel_err": {n: _grad_rel(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+           "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want)),
+           "bitwise": all(torch.equal(a, c) for a, c in zip(got, again)),
+           "tol": BWD_TOL[dtype]}
+    finite = all(torch.isfinite(g.float()).all() for g in got)
+    if not (finite and rec["bitwise"] and max(rec["rel_err"].values()) <= BWD_TOL[dtype]):
+        raise AssertionError(f"the flash_attention backward disagrees with the plain "
+                             f"backward: {rec}")
     return rec
 
 
@@ -1729,8 +1807,20 @@ def attention_phase(card: str) -> dict:
               f"{ctl['fp32_p']['max_abs_err']:.3g} / {ctl['fp32_p']['row_rel_err']:.3g} per "
               f"row, last kv tile dropped {ctl['dropped_tile']['max_abs_err']:.3g} / "
               f"{ctl['dropped_tile']['row_rel_err']:.3g} per row  [{card}]")
+    backward = [check_attention_backward(*shape, dtype, gen)
+                for shape in ATTN_BWD_SHAPES for dtype in (torch.float32, torch.bfloat16)]
+    worst_bwd = max(max(r["rel_err"].values()) / r["tol"] for r in backward)
+    bwd_main = backward[-1]
+    print(f"attention: backward kernels, {len(backward)} checks against the plain backward "
+          f"(fp32 and bf16, hd {sorted({r['shape'][5] for r in backward})}, causal sq != skv, "
+          f"ragged, one row, the served shape), each gradient over max(1, its max |plain "
+          f"value|): "
+          f"worst {worst_bwd:.3g} of its tolerance ({BWD_TOL[torch.float32]} fp32, "
+          f"{BWD_TOL[torch.bfloat16]} bf16); every one twice bitwise the same; served shape "
+          f"bf16 dq / dk / dv " + " / ".join(f"{v:.3g}" for v in bwd_main["rel_err"].values())
+          + f"  [{card}]")
     return {"records": records, "main": main, "contiguous": contiguous, "long": long,
-            "others": others}
+            "others": others, "backward": backward, "backward_main": bwd_main}
 
 
 def _device_times(prof, steps_run: int) -> dict:
@@ -2034,6 +2124,50 @@ def check_ssd(shape, dtype, gen, timed: bool, ranges: str = "normal") -> dict:
     return rec
 
 
+def ssd_bwd_bound_parts_ms(b, s, h, p, g, n, chunk, dtype) -> tuple[float, float]:
+    """The two lower bounds of one chunk scan's backward in ms: bytes (x, dy,
+    B, C, dt, A read once; dx, dB, dC, dt's and A's gradients written once)
+    over the memory rate; and the operations the plain backward's products
+    need under the causal mask over the peak rate for the input type: per
+    chunk of L positions, its five Q·Q products over the L(L+1)/2 pairs at
+    or below the diagonal (2(3N + 2P) operations each) and six state
+    products (12PN per position)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = itemsize * (3 * b * s * h * p + 4 * b * s * g * n) + 4 * (2 * b * s * h + 2 * h)
+    q = min(chunk, s)
+    ops = sum(2 * (3 * n + 2 * p) * (ln * (ln + 1) // 2) + 12 * p * n * ln
+              for ln in (min(q, s - r0) for r0 in range(0, s, q)))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            float(b * h * ops) / PEAK_FLOP_PER_S[dtype] * 1e3)
+
+
+def check_ssd_backward(shape, dtype, gen, ranges: str = "normal",
+                       with_state: bool = False) -> dict:
+    """The backward kernels (``launch_bwd``) against the plain backward
+    (``ref.ssd_chunked_bwd``) on the same inputs, y's cotangent and, with
+    ``with_state``, the final state's; a second call must give bitwise the
+    same gradients."""
+    b, s, h, p, g, n, chunk = shape
+    x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, dtype, gen, ranges)
+    dy = torch.randn(x.shape, generator=gen, device=DEV).to(dtype)
+    dst = torch.randn((b, h, p, n), generator=gen, device=DEV) if with_state else None
+    got = ssd_scan.launch_bwd(x, dt, A, Bm, Cm, dy, dst, chunk=chunk)
+    again = ssd_scan.launch_bwd(x, dt, A, Bm, Cm, dy, dst, chunk=chunk)
+    want = ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dst, chunk)
+    torch.cuda.synchronize()
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    rec = {"shape": shape, "dtype": str(dtype)[6:], "ranges": ranges, "with_state": with_state,
+           "rel_err": {nm: _grad_rel(gr, w) for nm, gr, w in zip(names, got, want)},
+           "max_abs_err": max((gr.float() - w.float()).abs().max().item()
+                              for gr, w in zip(got, want)),
+           "bitwise": all(torch.equal(a, c) for a, c in zip(got, again)),
+           "tol": BWD_TOL[dtype]}
+    finite = all(torch.isfinite(gr.float()).all() for gr in got)
+    if not (finite and rec["bitwise"] and max(rec["rel_err"].values()) <= BWD_TOL[dtype]):
+        raise AssertionError(f"the ssd_scan backward disagrees with the plain backward: {rec}")
+    return rec
+
+
 def ssd_phase(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(4)
     records, seq_err = [], 0.0
@@ -2068,6 +2202,13 @@ def ssd_phase(card: str) -> dict:
         shape = moe_gmm_shapes()[name]
         for dtype in (torch.float32, torch.bfloat16):
             backward[f"{name} {str(dtype)[6:]}"] = check_gmm_backward(*shape, dtype, gen)
+    bwd = [check_ssd_backward(shape, dtype, gen, with_state=i % 2 == 1)
+           for i, shape in enumerate(SSD_SMALL + [(b, 1000, h, p, g, n, chunk), ZAMBA_SSD])
+           for dtype in (torch.float32, torch.bfloat16)]
+    bwd += [check_ssd_backward(shape, dtype, gen, ranges="model", with_state=i % 2 == 0)
+            for i, shape in enumerate(SSD_EDGES) for dtype in (torch.float32, torch.bfloat16)]
+    bwd_main = check_ssd_backward(SERVE_SSD, torch.bfloat16, gen, ranges="model")
+    bwd.append(bwd_main)
     worst = max(r["rel_err"] / r["tol"] for r in records)
     worst_state = max(r["state_rel_err"] for r in records) / SSD_TOL[torch.float32]
     controls = [(r["shape"], name, v) for r in records
@@ -2092,8 +2233,16 @@ def ssd_phase(card: str) -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, "
               f"operations {r['bound_ops_ms']:.4f}); wrapper {r['host_us']:.2f} µs of host time "
               f"a call; y {r['rel_err']:.3g} of max |y|, state {r['state_rel_err']:.3g}  [{card}]")
+    worst_bwd = max(max(r["rel_err"].values()) / r["tol"] for r in bwd)
+    print(f"ssd: backward kernels, {len(bwd)} checks against the plain backward (fp32 and "
+          f"bf16; the same shapes, the edges in mamba2's ranges, with and without the final "
+          f"state's cotangent), each gradient over max(1, its max |plain value|): worst "
+          f"{worst_bwd:.3g} of its tolerance ({BWD_TOL[torch.float32]} fp32, "
+          f"{BWD_TOL[torch.bfloat16]} bf16); every one twice bitwise the same; mamba2-370m's "
+          f"training shape bf16 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                             bwd_main["rel_err"].items()) + f"  [{card}]")
     return {"records": records, "main": main, "zamba": zamba, "seq_err": seq_err,
-            "controls": controls}
+            "controls": controls, "backward": bwd, "backward_main": bwd_main}
 
 
 def gmm_bound_parts_ms(e, c, d, f, dtype) -> tuple[float, float]:
@@ -2681,6 +2830,7 @@ TRAIN_PLANTED = {"gmm_dw_dropped": MOE_ARCH, "ssd_scan_dB_zeroed": SSM_ARCH}
 TRAIN_LOOP_LAYERS, TRAIN_LOOP_STEPS, TRAIN_LOOP_EVERY, TRAIN_LOOP_FAIL = 4, 12, 5, 7
 # device kernels by symbol: the port's kernels, then cuBLAS's
 TRAIN_KERNEL_KEYS = {"flash_attention": ("attn_fwd",), "ssd_scan": ("ssd_chunk_scan",),
+                     "flash_attention_bwd": ("attn_bwd_",), "ssd_scan_bwd": ("ssd_bwd_",),
                      "gmm": ("gmm_bf16", "gmm_f32"),
                      "cublas": ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")}
 TRAIN_RANGES = ("flash_attention.backward", "ssd_scan.backward", "optimizer.step")
@@ -2696,8 +2846,8 @@ def _train_run(cfg, batch: int, seq: int, **train) -> RunConfig:
 
 class _RawProfile(torch.autograd.profiler.profile):
     """torch's profiler (CPU and CUDA activity) that keeps kineto's raw
-    events and skips building its Python event tree: that takes over a
-    minute for the ~10^5 ops of three mamba2 steps (its plain-VJP scans)."""
+    events and skips building its Python event tree, which takes minutes
+    for a profile of ~10^5 ops."""
 
     def __init__(self):
         # a private name of torch's (torch calls it where it builds the tree,
@@ -2715,31 +2865,33 @@ class _RawProfile(torch.autograd.profiler.profile):
 def _train_breakdown(prof: _RawProfile, steps_run: int) -> dict:
     """Device ms per step from a finished ``_RawProfile``: all of it, by
     kernel symbol (TRAIN_KERNEL_KEYS, the rest "elementwise and other"),
-    and in each of TRAIN_RANGES (the plain-VJP backwards and the optimizer:
-    the kernels launched by the ops that start inside the range on its
-    thread, as torch's profiler attributes them)."""
+    and in each of TRAIN_RANGES (the K2 and K3 backwards and the optimizer:
+    the device work whose launch, a runtime call, ran inside the range on its
+    thread; the backward kernels launch straight from their libraries, with
+    no op of torch's inside the range to link them to)."""
     if getattr(prof, "kineto_results", None) is None:
         raise AssertionError("torch's profiler kept no kineto_results: its names have changed")
-    per_kernel, by_corr, ops, ranges = {}, {}, {}, []
+    per_kernel, by_corr, launches, ranges = {}, {}, {}, []
     for e in prof.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             if e.is_user_annotation():  # the device side of a range, not a kernel
                 continue
             ms = e.duration_ns() / 1e6 / steps_run
             per_kernel[e.name()] = per_kernel.get(e.name(), 0.0) + ms
-            by_corr[e.linked_correlation_id()] = by_corr.get(e.linked_correlation_id(), 0.0) + ms
-        elif e.linked_correlation_id() == 0:  # an op or a range, not a runtime call
-            ops.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.correlation_id()))
-            if e.name() in TRAIN_RANGES:
-                ranges.append((e.name(), e.start_thread_id(), e.start_ns(), e.end_ns()))
-    for thread_ops in ops.values():
-        thread_ops.sort()
+            by_corr[e.correlation_id()] = by_corr.get(e.correlation_id(), 0.0) + ms
+        elif e.linked_correlation_id() != 0:  # a runtime call (a launch), linked to its op
+            launches.setdefault(e.start_thread_id(), []).append((e.start_ns(),
+                                                                 e.correlation_id()))
+        elif e.name() in TRAIN_RANGES:
+            ranges.append((e.name(), e.start_thread_id(), e.start_ns(), e.end_ns()))
+    for calls in launches.values():
+        calls.sort()
     in_range = {name: 0.0 for name in TRAIN_RANGES}
     for name, thread, start, end in ranges:
-        thread_ops = ops[thread]
-        lo = bisect.bisect_left(thread_ops, (start, -1))
-        hi = bisect.bisect_right(thread_ops, (end, math.inf))
-        in_range[name] += sum(by_corr.get(corr, 0.0) for _, corr in thread_ops[lo:hi])
+        calls = launches.get(thread, [])
+        lo = bisect.bisect_left(calls, (start, -1))
+        hi = bisect.bisect_right(calls, (end, math.inf))
+        in_range[name] += sum(by_corr.get(corr, 0.0) for _, corr in calls[lo:hi])
     by = {name: sum(v for k, v in per_kernel.items() if any(key in k for key in keys))
           for name, keys in TRAIN_KERNEL_KEYS.items()}
     by["elementwise and other"] = sum(per_kernel.values()) - sum(by.values())
@@ -2747,26 +2899,41 @@ def _train_breakdown(prof: _RawProfile, steps_run: int) -> dict:
             "top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])}
 
 
-def _vjp_call_ms(kind: str) -> float:
-    """Device ms of one plain-VJP backward at the training shape, alone (CUDA
-    events): K2's at qwen3-1.7B's attention (B 8, H 16, KV 8, S 1024, hd
-    128, bf16, causal), K3's at mamba2-370m's scan (B 8, S 1024, H 32, P 64,
-    N 128, chunk 256, bf16)."""
+def _backward_call(kind: str) -> dict:
+    """One backward alone at the training shape (CUDA events), K2's at
+    qwen3-1.7B's attention (B 8, H 16, KV 8, S 1024, hd 128, bf16, causal),
+    K3's at mamba2-370m's scan (B 8, S 1024, H 32, P 64, N 128, chunk 256,
+    bf16): the backward kernels (``launch_bwd``), the plain VJP (``ref.vjp``
+    of the plain forward, what the port ran before the kernels), and for K2
+    ``scaled_dot_product_attention``'s backward (autograd; timed here, used
+    nowhere in the port); the bound from the shapes."""
     gen = torch.Generator(DEV).manual_seed(21)
     if kind == "flash_attention":
         b, h, kv, s, hd = SERVE_ATTN
-        q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
-                   for t in attention_inputs(b, h, kv, s, s, hd, torch.bfloat16, gen, "bshd"))
-        inputs = (q, k, v)
-        out = kops.flash_attention(q, k, v, causal=True)
+        q, k, v = attention_inputs(b, h, kv, s, s, hd, torch.bfloat16, gen, "bshd")
+        do = torch.randn((b, s, h, hd), generator=gen, device=DEV).bfloat16().transpose(1, 2)
+        o, lse = flash_attention.launch(q, k, v, causal=True, with_lse=True)
+        kernel = lambda: flash_attention.launch_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
+        plain = lambda: kref.vjp(  # noqa: E731
+            lambda *t: flash_attention_ref(*t, causal=True), (q, k, v), (True,) * 3, (do,))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                               enable_gqa=True)
+        library = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        parts = attention_bwd_bound_parts_ms(b, h, kv, s, s, hd, True, torch.bfloat16)
     else:
         b, s, h, p, g, n, chunk = SERVE_SSD
-        inputs = tuple(t.detach().requires_grad_(True)
-                       for t in ssd_inputs(b, s, h, p, g, n, torch.bfloat16, gen))
-        out = kops.ssd_scan(*inputs, chunk=chunk)[0]
-    ct = torch.randn(out.shape, generator=gen, device=DEV).to(out.dtype)
-    return time_ms(lambda: torch.autograd.grad(out, inputs, ct, retain_graph=True),
-                   iters=5, warmup=1)
+        x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, torch.bfloat16, gen, "model")
+        dy = torch.randn(x.shape, generator=gen, device=DEV).bfloat16()
+        kernel = lambda: ssd_scan.launch_bwd(x, dt, A, Bm, Cm, dy, None, chunk=chunk)  # noqa: E731
+        plain = lambda: kref.vjp(  # noqa: E731
+            lambda *t: ssd_chunked(*t, chunk), (x, dt, A, Bm, Cm), (True,) * 5, (dy, None))
+        library = None  # no single PyTorch call computes the chunk scan or its gradient
+        parts = ssd_bwd_bound_parts_ms(b, s, h, p, g, n, chunk, torch.bfloat16)
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5, warmup=1),
+            "library_ms": None if library is None else time_ms(library),
+            "bound_bytes_ms": parts[0], "bound_ops_ms": parts[1], "bound_ms": max(parts),
+            "bound_by": "bytes" if parts[0] >= parts[1] else "operations"}
 
 
 def _train_model(card: str, label: str, cfg, remat: str, expect: dict,
@@ -2885,12 +3052,13 @@ def _update_errs(got, want, old) -> list[float]:
     """Per leaf, how far the update ``got - old`` is from ``want - old``
     beyond one rounding step of the new parameter (the spacing of its type
     at ``want``), over the leaf's max |want - old|; 0 where both updates
-    are all 0, inf where only ``want``'s is. ``want`` and ``old`` on the
-    CPU."""
+    are all 0, inf where only ``want``'s is. Taken in float64 on ``got``'s
+    device, leaf by leaf (the same IEEE arithmetic as on the CPU)."""
     errs = []
     for g, w, o in zip(tree_leaves(got), tree_leaves(want), tree_leaves(old)):
+        w, o = w.to(g.device), o.to(g.device)
         step = (torch.nextafter(w, torch.full_like(w, math.inf)) - w).double()
-        excess = ((g.cpu().double() - w.double()).abs() - step).clamp_min(0).max().item()
+        excess = ((g.double() - w.double()).abs() - step).clamp_min(0).max().item()
         scale = (w.double() - o.double()).abs().max().item()
         errs.append(excess / scale if scale else (0.0 if excess == 0 else math.inf))
     return errs
@@ -2900,7 +3068,7 @@ def _update_errs(got, want, old) -> list[float]:
 def _train_fault(fault: str):
     """A fault the training gradient check must see, for the length of a
     ``with``: gmm's first backward product with no dw (K4's dw launch left
-    out), or every ssd_scan backward's dB zeroed (K3's plain VJP)."""
+    out), or every ssd_scan backward's dB zeroed (K3's backward kernels)."""
     gmm_bwd, ssd_bwd, calls = gmm.Gmm.backward, ssd_scan.SsdScan.backward, []
 
     def no_dw(ctx, dy):
@@ -3053,24 +3221,26 @@ def _train_loop(card: str) -> dict:
 
 def _train_keys(res: dict, kernel: str, step: str) -> dict:
     """A kernel's keys of the ``kernels`` line from its training run: its
-    launches and device ms per step, and its plain-VJP backward's device ms
-    per step where it has one."""
+    launches and device ms per step, and its backward range's device ms per
+    step where it has one."""
     out = {"launches_per_train_step": res["launches_per_step"][kernel],
            "device_ms_per_train_step": res["by_kernel"][kernel], "train_step": step}
-    vjp = res["ranges"].get(f"{kernel}.backward")
-    if vjp is not None:
-        out["plain_vjp_backward_device_ms_per_train_step"] = vjp
+    bwd = res["ranges"].get(f"{kernel.removesuffix('_bwd')}.backward")
+    if bwd is not None:
+        out["backward_range_device_ms_per_train_step"] = bwd
     return out
 
 
 def train_phase(card: str) -> dict:
     """The LLM families' training step on the card at full width: qwen3-1.7B
-    (28 layers, flash_pallas, remat="full": 56 K2 launches a step, 28 forward
-    and 28 in the recompute), mamba2-370m (48 layers, remat="none": 48 K3
-    launches) and qwen2-moe-a2.7b cut to TRAIN_MOE_LAYERS layers
-    (flash_pallas, remat="none": 9 K4 launches a layer, 3 forward and 6
-    backward, and 1 K2); each plain-VJP backward timed alone; then the card
-    against the CPU (``_train_check``) and the loop (``_train_loop``)."""
+    (28 layers, flash_pallas, remat="full": 112 K2 launches a step, 28
+    forward, 28 in the recompute and 2 a layer of the backward's),
+    mamba2-370m (48 layers, remat="none": 288 K3 launches, 48 forward and 5
+    a layer of the backward's) and qwen2-moe-a2.7b cut to TRAIN_MOE_LAYERS
+    layers (flash_pallas, remat="none": 9 K4 launches a layer, 3 forward and
+    6 backward, and 3 K2); each backward timed alone against its plain VJP;
+    then the card against the CPU (``_train_check``) and the loop
+    (``_train_loop``)."""
     part_s, t0 = {}, time.perf_counter()
 
     def done(name):
@@ -3080,7 +3250,8 @@ def train_phase(card: str) -> dict:
 
     qwen3 = configs.get(SERVE_ARCH).scaled(attn_impl="flash_pallas")
     qwen3_out = _train_model(card, f"{SERVE_ARCH} full width, {qwen3.num_layers} layers", qwen3,
-                             "full", {"flash_attention": 2 * qwen3.num_layers},
+                             "full", {"flash_attention": 4 * qwen3.num_layers,
+                                      "flash_attention_bwd": 2 * qwen3.num_layers},
                              n_steps=TRAIN_STEPS, variants=True)
     if not qwen3_out["loss_drop"] >= TRAIN_LOSS_DROP:
         raise AssertionError(f"train {SERVE_ARCH}: the loss fell {qwen3_out['loss_drop']} over "
@@ -3088,27 +3259,33 @@ def train_phase(card: str) -> dict:
     done("qwen3")
     mamba = configs.get(SSM_ARCH)
     mamba_out = _train_model(card, f"{SSM_ARCH} full width, {mamba.num_layers} layers", mamba,
-                             "none", {"ssd_scan": mamba.num_layers})
+                             "none", {"ssd_scan": 6 * mamba.num_layers,
+                                      "ssd_scan_bwd": 5 * mamba.num_layers})
     done("mamba2")
     moe_cfg = configs.get(MOE_ARCH).scaled(num_layers=TRAIN_MOE_LAYERS, attn_impl="flash_pallas")
     moe_out = _train_model(card, f"{MOE_ARCH} full width, cut to {TRAIN_MOE_LAYERS} layers",
                            moe_cfg, "none", {"gmm": 9 * TRAIN_MOE_LAYERS,
-                                             "flash_attention": TRAIN_MOE_LAYERS})
+                                             "flash_attention": 3 * TRAIN_MOE_LAYERS,
+                                             "flash_attention_bwd": 2 * TRAIN_MOE_LAYERS})
     done("moe")
-    vjp = {kind: _vjp_call_ms(kind) for kind in ("flash_attention", "ssd_scan")}
+    bwd = {kind: _backward_call(kind) for kind in ("flash_attention", "ssd_scan")}
     for kind, per_step, res in (("flash_attention", qwen3.num_layers, qwen3_out),
                                 ("ssd_scan", mamba.num_layers, mamba_out)):
-        ms = vjp[kind] * per_step
-        print(f"train: {kind}'s plain-VJP backward alone at the step's shape: {vjp[kind]:.3f} ms "
-              f"a call (CUDA events), x {per_step} = {ms:.2f} ms a step, "
-              f"{ms / (res['device_ms'] or math.nan):.1%} of the step's device time  [{card}]")
-    done("vjp")
+        r = bwd[kind]
+        lib = "" if r["library_ms"] is None else f", sdpa's backward {r['library_ms']:.4f} ms"
+        print(f"train: {kind}'s backward alone at the step's shape (CUDA events): kernels "
+              f"{r['ms']:.4f} ms a call (x {per_step} = {r['ms'] * per_step:.2f} ms a step; "
+              f"the step's {kind}.backward range {res['ranges'][f'{kind}.backward']:.2f} ms), "
+              f"plain VJP {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, operations "
+              f"{r['bound_ops_ms']:.4f})  [{card}]")
+    done("backward")
     check = _train_check(card)
     done("check")
     loop = _train_loop(card)
     done("loop")
     print("train: seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
-    return {"qwen3": qwen3_out, "mamba2": mamba_out, "moe": moe_out, "vjp_call_ms": vjp,
+    return {"qwen3": qwen3_out, "mamba2": mamba_out, "moe": moe_out, "backward_call": bwd,
             "check": check, "loop": loop, "part_s": part_s}
 
 
@@ -3416,7 +3593,8 @@ def _sharded_update_err(new, clipped, old, run) -> float:
     for (_, n), (_, g), (_, o) in zip(tree_paths(new), tree_paths(clipped), tree_paths(old)):
         piece = _local_piece(n, o).to(n.to_local().device)
         want = _stepped({"p": piece}, {"p": g.to_local().clone()}, noclip)["p"]
-        worst = max(worst, _update_errs([n.to_local()], [want.cpu()], [piece.cpu()])[0])
+        # on the CPU: the rank's peak memory, read after this, stays the step's
+        worst = max(worst, _update_errs([n.to_local().cpu()], [want.cpu()], [piece.cpu()])[0])
     return worst
 
 
@@ -3941,7 +4119,8 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    libs = kbuild.build(*(mod.SOURCE for mod in KERNELS.values()))
+    libs = kbuild.build(*(src for mod in KERNELS.values()
+                          for src in getattr(mod, "SOURCES", (mod.SOURCE,))))
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]")
     for log in kbuild.LOGS.values():
@@ -4063,6 +4242,49 @@ def main() -> int:
                                                  "device_plain_ms", "bound_ms")},
         "controls": {f"{shape} {name}": v for shape, name, v in ssd["controls"]},
         **_train_keys(train["mamba2"], "ssd_scan",
+                      "mamba2-370m at full width, 48 layers, remat=none, 8 x 1024 tokens"),
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88",
+        "replaces_note": "the TPU kernel has no VJP; the reference differentiates its jnp "
+                         "attention, the plain VJP the port ran before these kernels",
+        "launches": train["qwen3"]["launches_per_step"]["flash_attention_bwd"] * TRAIN_TIMED,
+        "max_abs_err": attn["backward_main"]["max_abs_err"],
+        "ms": train["backward_call"]["flash_attention"]["ms"],
+        "plain_ms": train["backward_call"]["flash_attention"]["plain_ms"],
+        "bound_ms": train["backward_call"]["flash_attention"]["bound_ms"],
+        "bound_by": train["backward_call"]["flash_attention"]["bound_by"],
+        "library_ms": train["backward_call"]["flash_attention"]["library_ms"],
+        "timing": "one backward at qwen3-1.7B's training shape (B 8, H 16, KV 8, S 1024, hd "
+                  "128, bf16, causal) alone, CUDA events; plain: ref.vjp of the plain "
+                  "forward; library: scaled_dot_product_attention's backward",
+        "launches_note": f"over the train phase's {TRAIN_TIMED} timed qwen3 steps",
+        "checks": len(attn["backward"]),
+        **_train_keys(train["qwen3"], "flash_attention_bwd",
+                      "qwen3-1.7B at full width, 28 layers, remat=full, 8 x 1024 tokens"),
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:88",
+        "replaces_note": "the TPU kernel has no VJP; the reference differentiates its jnp "
+                         "chunked scan, the plain VJP the port ran before these kernels",
+        "launches": train["mamba2"]["launches_per_step"]["ssd_scan_bwd"] * TRAIN_TIMED,
+        "max_abs_err": ssd["backward_main"]["max_abs_err"],
+        "ms": train["backward_call"]["ssd_scan"]["ms"],
+        "plain_ms": train["backward_call"]["ssd_scan"]["plain_ms"],
+        "bound_ms": train["backward_call"]["ssd_scan"]["bound_ms"],
+        "bound_by": train["backward_call"]["ssd_scan"]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the chunk scan's gradient",
+        "timing": "one backward at mamba2-370m's training shape (B 8, S 1024, H 32, P 64, N "
+                  "128, chunk 256, bf16) alone, CUDA events; plain: ref.vjp of the plain "
+                  "forward",
+        "launches_note": f"over the train phase's {TRAIN_TIMED} timed mamba2 steps",
+        "checks": len(ssd["backward"]),
+        **_train_keys(train["mamba2"], "ssd_scan_bwd",
                       "mamba2-370m at full width, 48 layers, remat=none, 8 x 1024 tokens"),
     }, {
         "name": "gmm",

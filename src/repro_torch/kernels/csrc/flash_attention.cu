@@ -11,7 +11,11 @@
 //   m' = max(m, rowmax s); p = exp(s - m'); corr = exp(m - m');
 //   l' = l * corr + rowsum p (p in fp32);
 //   acc' = acc * corr + round_to_v_type(p) . v;
-//   o = acc / max(l, 1e-30), rounded to q's type.
+//   o = acc / max(l, 1e-30), rounded to q's type;
+//   and, when the launcher is given a buffer for it (a gradient will be
+//   taken), each row's lse = m + log(l) (scaled units, fp32), which the
+//   backward kernels (flash_attention_bwd.cu) read; the serve path passes
+//   none and writes nothing more.
 // The bf16 body keeps m in the units of the unscaled product and takes
 // exp(scale * (s - m)) as exp2(s * scale * log2(e) - m * scale * log2(e)):
 // the same function, with the scale folded into one FMA before exp2.
@@ -90,6 +94,7 @@ using namespace hopper;
 using bf16 = __nv_bfloat16;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---- bf16 on wgmma, with TMA and warp specialisation
 constexpr int NC = 2;                    // consumer warpgroups, 64 q rows each
@@ -141,7 +146,8 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int G, int H,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+               float* __restrict__ lse, int G, int H,
                int B, int Sq, int Skv, long long osb, long long osh, long long oss,
                int causal, int rows_first, int q_slow, float scale_log2) {
   using Gm = Geo<HD>;
@@ -396,6 +402,15 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       denom[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr && tig == 0) {  // the rows' log-sum-exp, for the backward
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + grp + 8 * half;
+        if (r < Sq)
+          lse[(static_cast<long long>(b) * H + h) * Sq + r] =
+              (m[half] * scale_log2 + log2f(denom[half])) * LN2;
+      }
+    }
     bf16* op = o + b * osb + h * osh;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -456,7 +471,8 @@ constexpr size_t smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, float* __restrict__ o, int G, int Sq, int Skv,
+         const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int G,
+         int H, int Sq, int Skv,
          long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
          long long kss, long long vsb, long long vsh, long long vss, long long osb,
          long long osh, long long oss, int causal, float scale) {
@@ -582,6 +598,8 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int gq = q0 + ty + 16 * i;
     if (gq >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)  // the row's log-sum-exp, for the backward
+      lse[(static_cast<long long>(b) * H + h) * Sq + gq] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < CD; ++jj)
       op[gq * oss + tx + 16 * jj] = acc[i][jj] / denom;
@@ -591,7 +609,8 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace f32
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KV,
            int Sq, int Skv, const long long* st, int causal, float scale,
            cudaStream_t stream) {
   const int G = H / KV;
@@ -624,7 +643,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     const long long items = static_cast<long long>((Sq + BQ - 1) / BQ) * H * B;
     const int grid = static_cast<int>(items < sms ? items : sms);  // one block per SM
     attn_fwd_wgmma<HD><<<grid, THREADS, bytes, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), G, H, B, Sq, Skv, st[9], st[10], st[11], causal,
+        tq, tk, tv, static_cast<bf16*>(o), lse, G, H, B, Sq, Skv, st[9], st[10], st[11], causal,
         rows_first, q_slow, scale * LOG2E);
   } else {
     constexpr size_t bytes = f32::smem_bytes<HD>();
@@ -634,7 +653,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     const dim3 grid((Sq + f32::BQ - 1) / f32::BQ, H, B);
     f32::attn_fwd<HD><<<grid, f32::THREADS, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Skv, st[0], st[1],
+        static_cast<const float*>(v), static_cast<float*>(o), lse, G, H, Sq, Skv, st[0], st[1],
         st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
         scale);
   }
@@ -642,17 +661,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 }
 
 template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
+int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse, int B,
               int H, int KV, int Sq, int Skv, const long long* st, int causal,
               float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 112: return launch<T, 112>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 112: return launch<T, 112>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Skv, st, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -660,17 +679,18 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int 
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16. strides: 12 element strides, (batch, head, row) of
-// q, k, v and o in that order. Returns a CUDA error code (0 when the launch
-// was accepted).
+// q, k, v and o in that order. lse: the rows' log-sum-exp as contiguous
+// (B, H, Sq) fp32, or null to write none. Returns a CUDA error code (0 when
+// the launch was accepted).
 extern "C" int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
-                                      const void* v, void* o, int B, int H, int KV,
+                                      const void* v, void* o, float* lse, int B, int H, int KV,
                                       int Sq, int Skv, const long long* strides,
                                       int causal, float scale, void* stream) {
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, B, H, KV, Sq, Skv, strides, causal, scale, s);
+    return launch_hd<float>(hd, q, k, v, o, lse, B, H, KV, Sq, Skv, strides, causal, scale, s);
   if (dtype == 1)
-    return launch_hd<bf16>(hd, q, k, v, o, B, H, KV, Sq, Skv, strides, causal, scale, s);
+    return launch_hd<bf16>(hd, q, k, v, o, lse, B, H, KV, Sq, Skv, strides, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

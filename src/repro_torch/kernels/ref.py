@@ -47,6 +47,36 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return out.reshape(b, h, sq, hd).to(q.dtype)
 
 
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True) -> tuple:
+    """The gradient of ``flash_attention_ref`` written out, as the backward
+    kernels compute it: (dq, dk, dv) in q's, k's and v's dtypes from q, k, v,
+    the forward's output o and its cotangent do (each (B, heads, S, hd)).
+    With the scores s (fp32, scaled, masked as the forward masks them), the
+    rows' log-sum-exp and P = exp(s - lse): D = rowsum(do · o); dv = Pᵀ do
+    with P rounded to v's dtype; dS = P (do vᵀ - D), rounded to q's dtype
+    for dq = dS k / √hd and dk = dSᵀ q / √hd; GQA sums each kv head's G
+    query heads."""
+    b, h, sq, hd = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, kv, g, sq, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    if causal:
+        keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dog = do.reshape(b, kv, g, sq, hd).float()
+    dsum = (dog * o.reshape(b, kv, g, sq, hd).float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p.to(v.dtype).float(), dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    ds = (p * (dp - dsum)).to(q.dtype).float()
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    return dq.reshape(b, h, sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_scan_ref(x, dt, A, B, C, chunk: int):
     """The sequential (non-chunked) SSD recurrence, one step per position.
     x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,G,N) with H a multiple of G.
@@ -118,6 +148,91 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int) -> tuple[torch.Tensor, torch.Tenso
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s]
     return y.to(x.dtype), state
+
+
+def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dstate: Optional[torch.Tensor],
+                    chunk: int) -> tuple:
+    """The gradient of ``ssd_chunked`` written out, as the backward kernels
+    compute it: (dx, ddt, dA, dB, dC) in the inputs' dtypes from the
+    forward's inputs, y's cotangent ``dy`` and the final state's
+    ``dstate`` (None for none). fp32 throughout, per chunk c (cs the chunk's
+    cumsum of dt·A, tot its last entry, L the masked decay, xdt = x·dt):
+    1. the chunks' own state terms, Sf = Σ_j xdt_jᵀ B_j e^(tot-cs_j) and
+       Sb = Σ_i e^(cs_i) dy_iᵀ C_i;
+    2. the states passed over the chunks: h_in(c+1) = e^tot h_in(c) + Sf(c)
+       forwards from 0, dh_out(c-1) = e^tot dh_out(c) + Sb(c) backwards
+       from ``dstate``;
+    3. each chunk's gradients from h_in and dh_out: dxdt = ((C Bᵀ)∘L)ᵀ dy +
+       u, u = e^(tot-cs) B dh_outᵀ; dC = ((dy xdtᵀ)∘L) B + e^cs dy h_in;
+       dB = ((dy xdtᵀ)∘L)ᵀ C + e^(tot-cs) xdt dh_out; the cumsum's cotangent
+       from L, e^cs and e^(tot-cs), summed in reverse into dt's and A's;
+    4. B's and C's gradients summed over each group's heads; padded tail
+       positions (dt = 0) add nothing."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hg = h // g
+    q = min(chunk, s)
+    pad = (-s) % q
+    nc = (s + pad) // q
+
+    def chunked(t, inner):  # (B, S, heads, *inner) fp32 -> (B, nc, Q, heads, *inner)
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * inner + (0, 0, 0, pad))
+        return t.reshape(b, nc, q, *t.shape[2:])
+
+    xf, dyf, dtf = chunked(x, 1), chunked(dy, 1), chunked(dt, 0)
+    bg = chunked(Bm.repeat_interleave(hg, dim=2), 1)
+    cg = chunked(Cm.repeat_interleave(hg, dim=2), 1)
+    af = A.float()
+    da = dtf * af  # (B, nc, Q, H)
+    cs = torch.cumsum(da, dim=2)
+    tot = cs[:, :, -1]  # (B, nc, H)
+    ecs, eout = torch.exp(cs), torch.exp(tot[:, :, None] - cs)
+    lmat = torch.exp(segsum(da.transpose(2, 3)))  # (B, nc, H, Q, Q)
+    xdt = xf * dtf[..., None]
+    # 1-2: the states each chunk starts from and its final state's cotangent
+    sf = torch.einsum("bcjhn,bcjhp->bchpn", bg * eout[..., None], xdt)
+    sb = torch.einsum("bcihp,bcihn->bchpn", dyf * ecs[..., None], cg)
+    etot = torch.exp(tot)[..., None, None]
+    h_in, state = [], torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        h_in.append(state)
+        state = state * etot[:, c] + sf[:, c]
+    dh_out = [None] * nc
+    carry = (dstate.float() if dstate is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    for c in reversed(range(nc)):
+        dh_out[c] = carry
+        carry = carry * etot[:, c] + sb[:, c]
+    hin, dhout = torch.stack(h_in, 1), torch.stack(dh_out, 1)  # (B, nc, H, P, N)
+    # 3: each chunk's gradients
+    scores = torch.einsum("bcihn,bcjhn->bchij", cg, bg) * lmat
+    dsc = torch.einsum("bcihp,bcjhp->bchij", dyf, xdt)
+    u = torch.einsum("bcjhn,bchpn->bcjhp", bg, dhout) * eout[..., None]
+    dxdt = torch.einsum("bchij,bcihp->bcjhp", scores, dyf) + u
+    dsl = dsc * lmat
+    dC = (torch.einsum("bchij,bcjhn->bcihn", dsl, bg)
+          + torch.einsum("bcihp,bchpn->bcihn", dyf, hin) * ecs[..., None])
+    dB = (torch.einsum("bchij,bcihn->bcjhn", dsl, cg)
+          + torch.einsum("bcjhp,bchpn->bcjhn", xdt, dhout) * eout[..., None])
+    ystate = torch.einsum("bcihn,bchpn->bcihp", cg, hin) * ecs[..., None]
+    m = dsc * scores
+    w = (xdt * u).sum(-1)  # (B, nc, Q, H)
+    dcs = (m.sum(-1) - m.sum(-2)).transpose(2, 3) + (dyf * ystate).sum(-1) - w
+    dtot = torch.exp(tot) * (hin * dhout).sum((-2, -1)) + w.sum(2)  # (B, nc, H)
+    dda = torch.flip(torch.cumsum(torch.flip(dcs, (2,)), 2), (2,)) + dtot[:, :, None]
+    ddt = dda * af + (dxdt * xf).sum(-1)
+    dA = (dda * dtf).sum((0, 1, 2))
+    dx = dxdt * dtf[..., None]
+
+    def unchunked(t):
+        return t.reshape(b, nc * q, *t.shape[3:])[:, :s]
+
+    dB = unchunked(dB).reshape(b, s, g, hg, n).sum(3)
+    dC = unchunked(dC).reshape(b, s, g, hg, n).sum(3)
+    return (unchunked(dx).to(x.dtype), unchunked(ddt).to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype))
 
 
 def gmm_ref(x, w) -> torch.Tensor:

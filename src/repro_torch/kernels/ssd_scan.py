@@ -38,13 +38,17 @@ state: the TPU kernel starts from zeros. ``LAUNCHES`` counts kernel
 launches.
 
 Gradient (``SsdScan``): the TPU kernel has no VJP, and the reference's
-Mamba2 mixer differentiates its jnp chunked scan. So backward recomputes
-that scan in plain torch (``ref.ssd_chunked``) from the saved inputs, on
-their device, and takes autograd's VJP of it for x, dt, A, B and C; the
-final state's gradient may be absent (``None``) or a tensor. The forward on
-the card still launches the kernel; a backward kernel is later work. The
-backward runs in a profiler range, ``ssd_scan.backward``, that gives its
-device time.
+Mamba2 mixer differentiates its jnp chunked scan. On the card its gradient
+for x, dt, A, B and C is five more hand-written launches
+(``csrc/ssd_scan_bwd.cu``: the chunks' states, the state pass, each chunk's
+gradients, the cumsum's, the sums over heads), from the saved inputs, y's
+cotangent and the final state's (absent, ``None``, or a tensor); a backward
+counts five launches (``LAUNCHES`` and ``BACKWARD_LAUNCHES``). On the CPU it
+takes the plain backward, ``ref.ssd_chunked_bwd``. The launches are the
+custom op ``repro_torch::ssd_scan_bwd`` (fake implementation and FLOP
+formula as the forward's). No atomics: the same inputs give bitwise the
+same gradients. The backward runs in a profiler range,
+``ssd_scan.backward``, that gives its device time.
 """
 from __future__ import annotations
 
@@ -62,10 +66,14 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
+SOURCES = (SOURCE, BWD_SOURCE)
 
-#: kernel launches so far (the plain version is not counted). Reset it to 0
-#: to count one run.
+#: kernel launches so far, forward and backward (the plain version is not
+#: counted). Reset it to 0 to count one run.
 LAUNCHES = 0
+#: of those, the backward's (five a backward)
+BACKWARD_LAUNCHES = 0
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 4096
 #: CTAs of a cluster that share a (batch, head)'s chunks, at most (portable)
@@ -79,6 +87,7 @@ BUFFERS = ((3, 2), (2, 2), (2, 1))
 TJ, TI, PW = 64, 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +162,9 @@ def plan(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
 
 
 def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path."""
-    return kbuild.build(SOURCE)[0]
+    """Compile the forward's and the backward's libraries if these sources
+    have not been built yet (in parallel); returns the forward's path."""
+    return kbuild.build(*SOURCES)[0]
 
 
 def _library() -> ctypes.CDLL:
@@ -172,6 +181,19 @@ def _library() -> ctypes.CDLL:
         lib.ssd_scan_smem.restype = i32
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(kbuild.build(BWD_SOURCE)[0]))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 13 + [i32] * 7 + [vp, vp]
+        lib.ssd_scan_bwd_launch.restype = i32
+        lib.ssd_scan_bwd_workspace.argtypes = [i32] * 6
+        lib.ssd_scan_bwd_workspace.restype = ctypes.c_longlong
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _tma_strides(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
@@ -299,9 +321,112 @@ def flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk: int, *args, out_s
     return ceil_div(s, q) * 2 * b * h * q * (q * n + q * p + 2 * p * n)
 
 
+def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor], *,
+               chunk: int) -> tuple[torch.Tensor, ...]:
+    """The backward kernels' five launches: (dx, ddt, dA, dB, dC), new
+    contiguous tensors in the inputs' dtypes, from the forward's inputs (as
+    ``launch`` takes them), y's cotangent ``dy`` (x's shape and dtype) and
+    the final state's ``dstate`` ((B, H, P, N) fp32, or None). Every tensor
+    is read through its strides. Raises on anything the kernels do not
+    take. The launches (``_launch_bwd``) are the custom op
+    ``repro_torch::ssd_scan_bwd``, called as one where ``kbuild.traced``
+    says so."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the ssd_scan backward runs on CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan takes float32 or bfloat16 x, got {x.dtype}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (dt.shape != (b, s, h) or A.shape != (h,) or B.shape[:2] != (b, s) or B.shape != C.shape
+            or h % g or p > MAX_P or n > MAX_N):
+        raise ValueError(f"shapes the ssd_scan backward does not take: x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B and C {tuple(B.shape)}")
+    q = min(int(chunk), s)
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    for t, what in ((B, "B"), (C, "C"), (dy, "dy")):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{what} must match x ({x.dtype} on {x.device}); "
+                             f"got {t.dtype} on {t.device}")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)}")
+    for t, what in ((dt, "dt"), (A, "A")) + (((dstate, "dstate"),) if dstate is not None else ()):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{what} must be float32 on {x.device}; got {t.dtype} on {t.device}")
+    if dstate is not None:
+        if dstate.shape != (b, h, p, n):
+            raise ValueError(f"dstate {tuple(dstate.shape)} is not {(b, h, p, n)}")
+        dstate = dstate.contiguous()
+    A = A.contiguous()
+    args = (x, dt, A, B, C, dy, dstate)
+    traced = kbuild.traced(*(t for t in args if t is not None))
+    launch_op = torch.ops.repro_torch.ssd_scan_bwd if traced else _launch_bwd
+    return launch_op(*args, q)
+
+
+def _launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor],
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The backward's launches on ``launch_bwd``'s operands (``chunk``
+    already ``min(chunk, S)``), with their fp32 workspace."""
+    global LAUNCHES, BACKWARD_LAUNCHES
+    kbuild.require_sm90(x, "ssd_scan")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dx = torch.empty((b, s, h, p), device=x.device, dtype=x.dtype)
+    ddt = torch.empty((b, s, h), device=x.device, dtype=torch.float32)
+    dA = torch.empty((h,), device=x.device, dtype=torch.float32)
+    dB = torch.empty((b, s, g, n), device=x.device, dtype=x.dtype)
+    dC = torch.empty_like(dB)
+    lib = _bwd_library()
+    ws = torch.empty((lib.ssd_scan_bwd_workspace(b, s, h, p, n, chunk),), device=x.device,
+                     dtype=torch.float32)
+    strides = (ctypes.c_longlong * 19)(*x.stride(), *dt.stride(), *B.stride(), *C.stride(),
+                                       *dy.stride())
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            ws.data_ptr(), b, s, h, g, p, n, chunk, strides,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
+    LAUNCHES += 5
+    BACKWARD_LAUNCHES += 5
+    return dx, ddt, dA, dB, dC
+
+
+_bwd_op = torch.library.custom_op("repro_torch::ssd_scan_bwd", _launch_bwd, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(x, dt, A, B, C, dy, dstate, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p)), x.new_empty((b, s, h), dtype=torch.float32),
+            x.new_empty((h,), dtype=torch.float32), x.new_empty(B.shape), x.new_empty(B.shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def bwd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, dy_shape, dstate_shape, chunk: int,
+              *args, out_shape=None, **kwargs) -> int:
+    """What the plain backward (``ref.ssd_chunked_bwd``) counts: per chunk of
+    Q positions, its products, 2·B·H·Q·(6·P·N + Q·(3·N + 2·P)): the two
+    state terms, their use in dx, dB, dC and the cumsum's cotangent (six
+    Q·P·N products), and C·Bᵀ, dy·xdtᵀ, dx's, dC's and dB's Q·Q products."""
+    b, s, h, p = x_shape
+    n = b_shape[3]
+    q = min(chunk, s)
+    return ceil_div(s, q) * 2 * b * h * q * (6 * p * n + q * (3 * n + 2 * p))
+
+
 class SsdScan(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version), with the plain
-    chunked scan's VJP as its gradient (see the module docstring)."""
+    """The kernel (or, on the CPU, the plain version), with the backward
+    kernels (on the CPU the plain backward) as its gradient (see the module
+    docstring)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -314,9 +439,16 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:  # only the final state is used
+            dy = torch.zeros_like(x)
         with torch.profiler.record_function("ssd_scan.backward"):
-            return ref.vjp(lambda *t: ref.ssd_chunked(*t, ctx.chunk), ctx.saved_tensors,
-                           ctx.needs_input_grad[:5], (dy, dstate)) + (None,)
+            if x.device.type == "cpu":
+                grads = ref.ssd_chunked_bwd(x, dt, A, B, C, dy, dstate, ctx.chunk)
+            else:
+                grads = launch_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:5])) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

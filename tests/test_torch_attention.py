@@ -21,6 +21,7 @@ from repro.serving import kvcache as RK  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.serving import kvcache as TK  # noqa: E402
@@ -124,10 +125,11 @@ def test_kernel_refuses_cpu_tensors():
 
 
 # (b, h, kv, s, t, hd, causal) in the model's layout: self-attention, GQA with
-# a ragged tile, causal with sq != skv both ways (top-left, as the model), and
-# cross-attention
+# a ragged tile, causal with sq != skv both ways (top-left, as the model),
+# cross-attention, and head_dim 80 with G 2
 GRAD_SHAPES = [(2, 4, 2, 40, 40, 16, True), (1, 4, 1, 24, 40, 32, True),
-               (1, 2, 2, 40, 24, 16, True), (2, 4, 2, 24, 40, 16, False)]
+               (1, 2, 2, 40, 24, 16, True), (2, 4, 2, 24, 40, 16, False),
+               (1, 4, 2, 24, 24, 80, True)]
 _naive_vjp = jax.jit(lambda q, k, v, do, causal: jax.vjp(
     lambda q, k, v: RL.naive_attention(q, k, v, causal=causal), q, k, v)[1](do),
     static_argnames=("causal",))
@@ -153,10 +155,29 @@ def attention_grad_err(b, h, kv, s, t, hd, causal):
 
 @pytest.mark.parametrize("b,h,kv,s,t,hd,causal", GRAD_SHAPES)
 def test_gradient_matches_jax_grad(b, h, kv, s, t, hd, causal):
-    """``ops.flash_attention``'s backward (the plain version's VJP,
-    recomputed) against ``jax.vjp`` of the reference model's attention on
-    the same inputs and cotangent, fp32; no kernel launch on the CPU."""
+    """``ops.flash_attention``'s backward (on the CPU the written-out plain
+    backward, ``ref.flash_attention_bwd``) against ``jax.vjp`` of the
+    reference model's attention on the same inputs and cotangent, fp32; no
+    kernel launch on the CPU."""
     assert attention_grad_err(b, h, kv, s, t, hd, causal) < GRAD_TOL
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,hd,causal", GRAD_SHAPES)
+def test_plain_backward_matches_autograd_in_bf16(b, h, kv, s, t, hd, causal):
+    """The written-out plain backward (``ref.flash_attention_bwd``) against
+    autograd of the plain forward (``ref.vjp``) in bf16, each gradient
+    relative to its largest value: the two round P and dS at other places."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(b, h, kv, s, t, hd, seed=7))
+    do = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
+    do = do.bfloat16()
+    o = flash_attention_ref(q, k, v, causal=causal)
+    got = tref.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    want = tref.vjp(lambda *x: flash_attention_ref(*x, causal=causal), (q, k, v), (True,) * 3,
+                    (do,))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err.item() < TOL["bfloat16"]
 
 
 def _model_layout(seed, b=2, s=5, t=40, h=4, kv=2, hd=16):

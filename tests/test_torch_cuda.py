@@ -37,6 +37,7 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ibn_conv, ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref, gmm_ref,  # noqa: E402
                                      ibn_pointwise_ref, ssd_chunked, ssd_scan_ref)
 from repro_torch.models import api, moe, transformer  # noqa: E402
@@ -364,6 +365,13 @@ def _rel_to_max(got, want):
     return (torch.max(torch.abs(got.float() - want.float())) / want.float().abs().max()).item()
 
 
+def _grad_rel(got, want):
+    """Over max(1, max |want|): absolute below 1 (a single query row's dq
+    and dk are 0 up to rounding)."""
+    return (torch.max(torch.abs(got.float() - want.float()))
+            / want.float().abs().max().clamp_min(1.0)).item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
@@ -577,8 +585,10 @@ def test_prefill_on_card_launches_its_kernel_per_layer(family, kernel, per_layer
 
 
 # H8: the backward of gmm (three kernel launches for a product with both
-# grads), ssd_scan and flash_attention (each the plain version's VJP,
-# recomputed on the card) against the plain version's own autograd grads
+# grads), ssd_scan (five launches of its backward kernels) and
+# flash_attention (two) against the plain versions: gmm's own autograd, and
+# the written-out plain backwards (ref.ssd_chunked_bwd,
+# ref.flash_attention_bwd)
 
 def _grads(fn, inputs, cotangent):
     leaves = [t.clone().requires_grad_(True) for t in inputs]
@@ -607,42 +617,128 @@ def test_gmm_backward_matches_plain_version_on_card(e, c, d, f, dtype):
         assert _rel_to_max(g, p) < GMM_TOL[dtype]
 
 
+# the backward kernels: a ragged tail with G > 1, a single chunk (S < Q),
+# mamba2-370m's widths at a ragged S (G 1, 32 heads sharing B and C),
+# zamba2-7b's H 112 N 64, and a cluster edge (S 4096) in mamba2's ranges;
+# (b, s, h, p, g, n, chunk, ranges)
+SSD_BWD_SHAPES = [SSD_SHAPES[4] + ("normal",), SSD_SHAPES[5] + ("normal",),
+                  SSD_SHAPES[6] + ("normal",), SSD_SHAPES[7] + ("normal",),
+                  SSD_EDGES[0] + ("model",)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [SSD_SHAPES[4], SSD_SHAPES[6]])
-def test_ssd_scan_backward_matches_plain_version_on_card(b, s, h, p, g, n, chunk, dtype):
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,ranges", SSD_BWD_SHAPES)
+def test_ssd_scan_backward_matches_plain_version_on_card(b, s, h, p, g, n, chunk, ranges,
+                                                         dtype, with_state):
+    """The backward kernels through ``ops.ssd_scan``'s autograd (with y's
+    cotangent alone and with the final state's too) against the plain
+    backward on the same inputs, per gradient relative to its largest
+    value: fp32 within SSD_TOL's 1e-3 (the chunk's cumsum and the sums run in
+    another order), bf16 within 2e-2 (the products' operands are rounded to
+    bf16 in the kernels, not in the plain backward)."""
     _need_sm90()
-    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype)
-    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(0),
-                     device="cuda").to(x.dtype)
-    before = tssd.LAUNCHES
-    got = _grads(lambda *t: ops.ssd_scan(*t, chunk=chunk), (x, dt, A, Bm, Cm), dy)
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype, ranges=ranges)
+    gen = torch.Generator("cuda").manual_seed(0)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    dst = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_state else None
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    before, bwd_before = tssd.LAUNCHES, tssd.BACKWARD_LAUNCHES
+    y, st = ops.ssd_scan(*leaves, chunk=chunk)
+    torch.autograd.backward([y, st] if with_state else [y], [dy, dst] if with_state else [dy])
     torch.cuda.synchronize()
-    assert tssd.LAUNCHES - before == 1  # the forward; backward is plain torch
-    want = _grads(lambda *t: ssd_chunked(*t, chunk), (x, dt, A, Bm, Cm), dy)
-    for gr, pl in zip(got, want):
-        assert gr.dtype == pl.dtype and torch.isfinite(gr.float()).all()
-        assert _rel_to_max(gr, pl) < SSD_TOL["float32"]  # the same plain VJP, recomputed
+    assert tssd.LAUNCHES - before == 6  # the forward and the backward's five
+    assert tssd.BACKWARD_LAUNCHES - bwd_before == 5
+    want = kref.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dst, chunk)
+    for leaf, pl in zip(leaves, want, strict=True):
+        gr = leaf.grad
+        assert gr.dtype == pl.dtype and gr.shape == pl.shape and torch.isfinite(gr.float()).all()
+        assert _rel_to_max(gr, pl) < SSD_TOL[dtype]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,kv,sq,skv,hd,causal", [ATTN_SHAPES[5], ATTN_SHAPES[9]])
+def test_backward_kernels_are_bitwise_the_same_twice(dtype):
+    """No atomics: two backward calls on the same inputs give bitwise the
+    same gradients (mamba2-370m's scan widths, 32 heads summing into one
+    group's B and C; qwen3's attention widths)."""
+    _need_sm90()
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 600, 32, 64, 1, 128, dtype, ranges="model")
+    dy = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(1),
+                     device="cuda").to(x.dtype)
+    one, two = (tssd.launch_bwd(x, dt, A, Bm, Cm, dy, None, chunk=256) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two, strict=True))
+    rng = np.random.default_rng(3)
+    q, k, v = _attention_inputs(rng, 2, 16, 8, 600, 600, 128, getattr(torch, dtype), "bshd")
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(2),
+                     device="cuda").to(q.dtype)
+    o, lse = tflash.launch(q, k, v, causal=True, with_lse=True)
+    one, two = (tflash.launch_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two, strict=True))
+
+
+# the attention backward: every head_dim the kernels take at a ragged length
+# with G 2, then causal with sq != skv both ways, cross-attention, MQA and a
+# single row; (b, h, kv, sq, skv, hd, causal)
+ATTN_BWD_SHAPES = ([(1, 4, 2, 130, 130, hd, True) for hd in tflash.HEAD_DIMS]
+                   + [ATTN_SHAPES[5], ATTN_SHAPES[6], ATTN_SHAPES[9], ATTN_SHAPES[11],
+                      (1, 8, 1, 200, 200, 64, True), (2, 4, 2, 1, 1, 128, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd,causal", ATTN_BWD_SHAPES)
 def test_flash_attention_backward_matches_plain_version_on_card(b, h, kv, sq, skv, hd, causal,
                                                                 dtype):
+    """The backward kernels through ``flash_attention``'s autograd on the
+    model's (B, S, H, hd) views against the plain backward, per gradient
+    over max(1, its largest value): fp32 within 1e-5, bf16 within 2e-2 (P
+    and dS rounded to bf16 as the kernels' operands, in another order)."""
     _need_sm90()
     rng = np.random.default_rng(13)
     td = getattr(torch, dtype)
     q, k, v = _attention_inputs(rng, b, h, kv, sq, skv, hd, td, "bshd")
     do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).cuda().to(td)
-    before = tflash.LAUNCHES
+    before, bwd_before = tflash.LAUNCHES, tflash.BACKWARD_LAUNCHES
     got = _grads(lambda *t: tflash.flash_attention(*t, causal=causal), (q, k, v), do)
     torch.cuda.synchronize()
-    assert tflash.LAUNCHES - before == 1
-    want = _grads(lambda *t: flash_attention_ref(*t, causal=causal), (q, k, v), do)
-    for gr, pl in zip(got, want):
+    assert tflash.LAUNCHES - before == 3  # the forward and the backward's two
+    assert tflash.BACKWARD_LAUNCHES - bwd_before == 2
+    o = flash_attention_ref(q, k, v, causal=causal)
+    want = kref.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    for gr, pl in zip(got, want, strict=True):
         assert gr.dtype == td and gr.shape == pl.shape
-        assert _rel_to_max(gr, pl) < 1e-5  # the same plain VJP, recomputed
+        assert _grad_rel(gr, pl) < (1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_no_plain_vjp_runs_on_the_card(monkeypatch, family):
+    """On CUDA tensors the gradients come from the backward kernels alone:
+    with ``ref.vjp``, the plain backwards and the plain forwards made to
+    raise, a backward of each op and a small train step still run."""
+    _need_sm90()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("vjp", "ssd_chunked_bwd", "flash_attention_bwd", "ssd_chunked",
+                 "flash_attention_ref"):
+        monkeypatch.setattr(kref, name, refuse)
+    if family == "ssm":
+        x, dt, A, Bm, Cm = _ssd_inputs(1, 130, 4, 16, 2, 16, "float32")
+        _grads(lambda *t: ops.ssd_scan(*t, chunk=64), (x, dt, A, Bm, Cm), torch.ones_like(x))
+    else:
+        q, k, v = _attention_inputs(np.random.default_rng(0), 1, 4, 2, 70, 70, 64,
+                                    torch.bfloat16, "bshd")
+        _grads(lambda *t: tflash.flash_attention(*t, causal=True), (q, k, v), torch.ones_like(q))
+    cfg = _train_cfg(family)
+    run, batch = _train_inputs(cfg)
+    params = api.init(0, cfg, device="cuda")
+    loss, _, grads = steps.value_and_grad(params, {k: v.cuda() for k, v in batch.items()}, run)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in tree_leaves(grads))
 
 
 @pytest.mark.cuda
@@ -785,17 +881,21 @@ def _train_cfg(family):
 
 def _train_launches(cfg, remat: str) -> dict:
     """Each kernel's launches in one training step: forward (again in the
-    recompute under remat) and, for gmm, dx and dw in the backward."""
+    recompute under remat) and the backward's: gmm's dx and dw, ssd_scan's
+    five, flash_attention's two (and those two counted apart, as
+    ``*_bwd``)."""
     r, n = (1 if remat == "none" else 2), cfg.num_layers
     if cfg.family == "moe":
-        return {"gmm": (3 * r + 6) * n, "flash_attention": r * n}
+        return {"gmm": (3 * r + 6) * n, "flash_attention": (r + 2) * n,
+                "flash_attention_bwd": 2 * n}
     if cfg.family == "ssm":
-        return {"ssd_scan": r * n}
+        return {"ssd_scan": (r + 5) * n, "ssd_scan_bwd": 5 * n}
     if cfg.family == "hybrid":  # the tail's Mamba2 layers are outside the remat
         groups = n // cfg.hybrid_attn_every
         per = cfg.hybrid_attn_every
-        return {"ssd_scan": r * groups * per + n - groups * per, "flash_attention": r * groups}
-    return {"flash_attention": r * n}
+        return {"ssd_scan": r * groups * per + n - groups * per + 5 * n, "ssd_scan_bwd": 5 * n,
+                "flash_attention": (r + 2) * groups, "flash_attention_bwd": 2 * groups}
+    return {"flash_attention": (r + 2) * n, "flash_attention_bwd": 2 * n}
 
 
 def _train_inputs(cfg, remat="none"):

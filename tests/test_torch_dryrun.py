@@ -12,9 +12,10 @@ steps:
   steps at 2 microbatches, within 1e-9 relative (the hybrid's bytes at
   whole groups of its shared-attention period; with a tail layer, 5e-3);
 * the kernels' custom ops: under ``FakeTensorMode`` on fake CUDA tensors
-  ``ops.flash_attention``, ``ops.ssd_scan`` and ``ops.gmm`` give the
-  kernels' output shapes, dtypes and strides and launch nothing; each FLOP
-  formula equals ``FlopCounterMode`` on the plain version at 3 shapes;
+  ``ops.flash_attention``, ``ops.ssd_scan``, ``ops.gmm`` and the backwards
+  of the first two give the kernels' output shapes, dtypes and strides and
+  launch nothing; each FLOP formula equals ``FlopCounterMode`` on the plain
+  version (the plain backward for a backward's) at 3 shapes;
 * world 1: every family's SMOKE step in each mode its config takes traces
   to the FLOPs, bytes and memory that the same counter reads on the real
   CPU step;
@@ -149,6 +150,19 @@ def _kernel_cases():
           ((2, 48, 1, 8), f32)]),
         ("gmm", lambda x, w: ops.gmm(x, w), ref.gmm_ref,
          [((3, 5, 16), bf), ((3, 16, 24), bf)]),
+        # the backwards, in and out in the model's (B, S, heads, hd) layout
+        ("flash_attention_bwd",
+         lambda q, k, v, o, lse, do: tuple(t.transpose(1, 2) for t in kfa.launch_bwd(
+             *(t.transpose(1, 2) for t in (q, k, v, o)), lse, do.transpose(1, 2), causal=True)),
+         lambda q, k, v, o, lse, do: tuple(t.transpose(1, 2) for t in ref.flash_attention_bwd(
+             *(t.transpose(1, 2) for t in (q, k, v, o, do)), causal=True)),
+         [((2, 40, 4, 64), bf), ((2, 40, 2, 64), bf), ((2, 40, 2, 64), bf), ((2, 40, 4, 64), bf),
+          ((2, 4, 40), f32), ((2, 40, 4, 64), bf)]),
+        ("ssd_scan_bwd",
+         lambda x, dt, a, b, c, dy, st: kssd.launch_bwd(x, dt, a, b, c, dy, st, chunk=16),
+         lambda x, dt, a, b, c, dy, st: ref.ssd_chunked_bwd(x, dt, a, b, c, dy, st, 16),
+         [((2, 48, 4, 16), f32), ((2, 48, 4), f32), ((4,), f32), ((2, 48, 1, 8), f32),
+          ((2, 48, 1, 8), f32), ((2, 48, 4, 16), f32), ((2, 4, 16, 8), f32)]),
     ]
 
 
@@ -178,6 +192,8 @@ FORMULA_SHAPES = {
     "flash_attention": [(1, 2, 1, 8, 8, 16), (2, 4, 2, 40, 33, 32), (1, 8, 8, 17, 64, 16)],
     "ssd_scan": [(1, 16, 2, 8, 1, 4, 16), (2, 40, 4, 16, 2, 8, 16), (1, 33, 2, 8, 1, 8, 64)],
     "gmm": [(1, 1, 1, 1), (3, 5, 7, 6), (4, 33, 16, 9)],
+    "flash_attention_bwd": [(1, 2, 1, 8, 8, 16), (2, 4, 2, 40, 33, 32), (1, 8, 8, 17, 64, 16)],
+    "ssd_scan_bwd": [(1, 16, 2, 8, 1, 4, 16), (2, 40, 4, 16, 2, 8, 16), (1, 33, 2, 8, 1, 8, 64)],
 }
 
 
@@ -203,6 +219,20 @@ def test_flop_formulas_count_what_the_plain_versions_count(name):
             A, B = -torch.rand(h, generator=gen), torch.randn(b, s, g, n, generator=gen)
             want = _flop_count(lambda: ref.ssd_chunked(x, dt, A, B, B, chunk))
             got = kssd.flops.__wrapped__(x.shape, dt.shape, A.shape, B.shape, B.shape, chunk)
+        elif name == "flash_attention_bwd":
+            b, h, kv, sq, skv, hd = shape
+            q, k = torch.randn(b, h, sq, hd, generator=gen), torch.randn(b, kv, skv, hd,
+                                                                         generator=gen)
+            want = _flop_count(lambda: ref.flash_attention_bwd(q, k, k, q, q, causal=True))
+            got = kfa.bwd_flops.__wrapped__(q.shape, k.shape, k.shape, q.shape, (b, h, sq),
+                                            q.shape, True)
+        elif name == "ssd_scan_bwd":
+            b, s, h, p, g, n, chunk = shape
+            x, dt = torch.randn(b, s, h, p, generator=gen), torch.rand(b, s, h, generator=gen)
+            A, B = -torch.rand(h, generator=gen), torch.randn(b, s, g, n, generator=gen)
+            want = _flop_count(lambda: ref.ssd_chunked_bwd(x, dt, A, B, B, x, None, chunk))
+            got = kssd.bwd_flops.__wrapped__(x.shape, dt.shape, A.shape, B.shape, B.shape,
+                                             x.shape, None, chunk)
         else:
             e, c, d, f = shape
             x, w = torch.randn(e, c, d, generator=gen), torch.randn(e, d, f, generator=gen)

@@ -256,14 +256,37 @@ def scan_grad_err(b, s, h, p, g, n, chunk, with_state):
 
 
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES[:2] + SCAN_SHAPES[4:5])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES[:2] + SCAN_SHAPES[4:6])
 def test_scan_gradient_matches_jax_grad(b, s, h, p, g, n, chunk, with_state):
-    """``ops.ssd_scan``'s backward (the plain chunked scan's VJP, recomputed)
-    for x, dt, A, B and C against ``jax.vjp`` of the reference model's
+    """``ops.ssd_scan``'s backward (on the CPU the written-out plain backward,
+    ``ref.ssd_chunked_bwd``) for x, dt, A, B and C against ``jax.vjp`` of the
+    reference model's
     ``ssd_chunked`` on the same inputs and cotangents, fp32: with y's
     cotangent alone (the final state unused, its gradient ``None``) and with
     the final state's as well."""
     assert scan_grad_err(b, s, h, p, g, n, chunk, with_state) < GRAD_TOL
+
+
+# bf16: the written-out plain backward against autograd of the plain forward
+# (ref.vjp), each gradient relative to its largest value: the two round at
+# other places (the plain forward rounds nothing inside, its autograd rounds
+# each gradient to the input's type)
+BF16_GRAD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES[:2] + SCAN_SHAPES[4:6])
+def test_plain_scan_backward_matches_autograd_in_bf16(b, s, h, p, g, n, chunk):
+    x, dt, A, Bm, Cm = _t(*scan_inputs(b, s, h, p, g, n, seed=4))
+    x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    rng = np.random.default_rng(5)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).bfloat16()
+    dst = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(np.float32))
+    got = ref.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dst, chunk)
+    want = ref.vjp(lambda *t: ref.ssd_chunked(*t, chunk), (x, dt, A, Bm, Cm), (True,) * 5,
+                   (dy, dst))
+    for gr, w in zip(got, want, strict=True):
+        assert gr.dtype == w.dtype and gr.shape == w.shape
+        assert ((gr.float() - w.float()).abs().max() / w.float().abs().max()).item() < BF16_GRAD_TOL
 
 
 # ---------------------------------------------------------------------------
