@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""K2's and K3's backward kernels on the card: each held against its plain
-backward (``ref.flash_attention_bwd``, ``ref.ssd_chunked_bwd``) at a set of
-shapes in fp32 and bf16, twice bitwise the same, then timed at the training
-shapes (qwen3-1.7B's attention, B 8, H 16, KV 8, S 1024, hd 128, causal;
-mamba2-370m's scan, B 8, S 1024, H 32, P 64, N 128, chunk 256; bf16) with
-each launch's device time from torch's profiler.
+"""The backward kernels on the card: K2's and K3's held against their plain
+backwards (``ref.flash_attention_bwd``, ``ref.ssd_chunked_bwd``) at a set
+of shapes in fp32 and bf16, and K4's (``gmm.Gmm``: dx and dw, two launches
+on the transposed views) against autograd of ``ref.gmm_ref``, each twice
+bitwise the same; then timed at the training shapes (qwen3-1.7B's
+attention, B 8, H 16, KV 8, S 1024, hd 128, causal; mamba2-370m's scan, B
+8, S 1024, H 32, P 64, N 128, chunk 256; qwen2-moe-a2.7b's expert products
+at 8 x 1024 tokens; bf16) with each launch's device time from torch's
+profiler, K4's beside two ``torch.bmm`` calls.
 
     PYTHONPATH=src python scripts/backward_kernels.py
 
 Prints the card's name and power limit, one line per check (each
-gradient's max error over max(1, its max |plain value|)), the times, and a
-last JSON line ``{"failed": [...], "ms": {...}, "kernels_us": {...}}``;
-exits 1 when a check fails its limit (fp32 1e-4, bf16 2e-2). The fp32
-scan at chunk 4096 is printed but held at 1e-3, chip_smoke.SSD_TOL's fp32
-limit: there the chunk's cumsum reaches thousands and the kernel's and
-the plain backward's sums in another order part by about 1e-4. Needs a
-CUDA card; exits 1 without one.
+gradient's max error over max(1, its max |plain value|); K4's over its
+plain max), the times, and a last JSON line ``{"failed": [...], "ms":
+{...}, "kernels_us": {...}}``; exits 1 when a check fails its limit (fp32
+1e-4, bf16 2e-2). K4's checks also fail on an operand copy at a shape
+whose views a TMA map describes, and on a missing one where none does.
+The fp32 scan at chunk 4096 is held, kernel and plain backward alike,
+against the plain backward evaluated in float64 on the same inputs, at
+1e-4. Needs a CUDA card; exits 1 without one.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import gmm as kgmm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 
@@ -42,6 +47,14 @@ SSD = [(1, 64, 2, 16, 1, 32, 64, False), (2, 100, 4, 16, 2, 16, 32, True),
        (1, 37, 2, 8, 1, 8, 16, True), (2, 300, 4, 64, 1, 128, 256, False),
        (2, 512, 112, 64, 1, 64, 256, False), (1, 1000, 4, 64, 4, 128, 256, True),
        (1, 130, 32, 64, 1, 128, 256, True), (1, 4096, 2, 64, 1, 128, 4096, False)]
+# (e, c, d, f, view): K4's backward at the training step's gate/up and down
+# products, C ragged (100: dw's K runs past C) and at most 64 (the 64-row
+# body), D and F multiples of 8 but not of 64, operands that are
+# expert-strided views, and a w whose row stride (F + 4) no TMA map takes
+GMM = [(60, 688, 2048, 1408, "contiguous"), (60, 688, 1408, 2048, "contiguous"),
+       (4, 100, 256, 384, "contiguous"), (3, 200, 200, 136, "contiguous"),
+       (4, 40, 128, 192, "contiguous"), (4, 120, 192, 320, "expert-strided"),
+       (3, 96, 128, 200, "unaligned w")]
 
 
 def rel(got, want) -> float:
@@ -70,6 +83,54 @@ def scan(b, s, h, p, g, n, dtype, gen, with_state):
     dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
     dst = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_state else None
     return x, dt, A, B, C, dy, dst
+
+
+def gmm_backward(e, c, d, f, view, dtype, gen) -> tuple[list, bool, int, int]:
+    """dx and dw of ``gmm.gmm`` on the card against autograd of the plain
+    version: ([dx, dw errors over each plain max], twice bitwise, launches,
+    operand copies)."""
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    if view == "expert-strided":
+        x, w = draw(2 * e, c, d)[::2], draw(2 * e, d, f, scale=d ** -0.5)[1::2]
+    elif view == "unaligned w":
+        x, w = draw(e, c, d), draw(e, d, f + 4, scale=d ** -0.5)[..., :f]
+    else:
+        x, w = draw(e, c, d), draw(e, d, f, scale=d ** -0.5)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    dy = draw(e, c, f)
+    copies = []  # of the backward's operands
+    padded = kgmm._padded
+    y = kgmm.gmm(x, w)
+    before = kgmm.LAUNCHES
+    kgmm._padded = lambda *a: copies.append(a) or padded(*a)
+    try:
+        got = torch.autograd.grad(y, (x, w), dy)
+    finally:
+        kgmm._padded = padded
+    launches = kgmm.LAUNCHES - before
+    again = torch.autograd.grad(kgmm.gmm(x, w), (x, w), dy)
+    plain = ref.gmm_ref(x, w)
+    want = torch.autograd.grad(plain, (x, w), dy)
+    errs = [((g.float() - p.float()).abs().max() / p.float().abs().max()).item()
+            for g, p in zip(got, want)]
+    return errs, all(torch.equal(a, b) for a, b in zip(got, again)), launches, len(copies)
+
+
+def ssd_float64(shape, with_state, gen) -> dict:
+    """The fp32 scan's backward (kernel and plain) against the plain
+    backward evaluated in float64 on the same inputs, each gradient's max
+    error over max(1, its max |float64 value|)."""
+    args = scan(*shape[:6], torch.float32, gen, with_state)
+    exact = ref.ssd_chunked_bwd(*(None if a is None else a.double() for a in args), shape[6],
+                                acc=torch.float64)
+    out = {}
+    for name, got in (("kernel", kssd.launch_bwd(*args, chunk=shape[6])),
+                      ("plain", ref.ssd_chunked_bwd(*args, shape[6]))):
+        out[name] = [rel(g, x) for g, x in zip(got, exact)]
+    return out
 
 
 def ms(fn, iters: int = 20) -> float:
@@ -113,17 +174,50 @@ def main() -> int:
             want = ref.ssd_chunked_bwd(*args, shape[6])
             errs = [rel(a, w) for a, w in zip(got, want)]
             same = all(torch.equal(a, c) for a, c in zip(got, again))
-            tol = 1e-3 if dtype == torch.float32 and shape[6] > 256 else TOL[dtype]
-            ok = max(errs) <= tol and same and all(torch.isfinite(t.float()).all() for t in got)
+            if dtype == torch.float32 and shape[6] > 256:
+                # the plain fp32 backward is itself off here: both against float64
+                f64 = ssd_float64(shape, with_state, gen)
+                print(f"ssd {tuple(shape)} fp32 against float64: kernel "
+                      + " / ".join(f"{e:.3g}" for e in f64["kernel"]) + ", plain "
+                      + " / ".join(f"{e:.3g}" for e in f64["plain"]))
+                errs = f64["kernel"]
+            ok = max(errs) <= TOL[dtype] and same and all(torch.isfinite(t.float()).all()
+                                                          for t in got)
             print(f"ssd {tuple(shape)} state {with_state} {str(dtype)[6:]}: dx / ddt / dA / dB "
                   "/ dC " + " / ".join(f"{e:.3g}" for e in errs) + f", bitwise {same}")
             if not ok:
                 failed.append(("ssd", tuple(shape), str(dtype)))
 
+        for e, c, d, f, view in GMM:
+            errs, same, launches, copies = gmm_backward(e, c, d, f, view, dtype, gen)
+            want_copies = 1 if view == "unaligned w" and dtype == torch.bfloat16 else 0
+            ok = max(errs) <= TOL[dtype] and same and launches == 2 and copies == want_copies
+            print(f"gmm backward {(e, c, d, f)} {view} {str(dtype)[6:]}: dx / dw "
+                  + " / ".join(f"{x:.3g}" for x in errs)
+                  + f", bitwise {same}, {launches} launches, {copies} operand copies")
+            if not ok:
+                failed.append(("gmm", (e, c, d, f, view), str(dtype)))
+
     attn = attention(8, 16, 8, 1024, 1024, 128, True, torch.bfloat16, gen)
     x, dt, A, B, C, dy, _ = scan(8, 1024, 32, 64, 1, 128, torch.bfloat16, gen, False)
     runs = {"flash_attention_bwd": lambda: kfa.launch_bwd(*attn, causal=True),
             "ssd_scan_bwd": lambda: kssd.launch_bwd(x, dt, A, B, C, dy, None, chunk=256)}
+    for name, (e, c, d, f) in (("gate/up", (60, 688, 2048, 1408)),
+                               ("down", (60, 688, 1408, 2048))):
+        gx = torch.randn((e, c, d), generator=gen, device="cuda").bfloat16()
+        gw = (torch.randn((e, d, f), generator=gen, device="cuda") * d ** -0.5).bfloat16()
+        gdy = torch.randn((e, c, f), generator=gen, device="cuda").bfloat16()
+        runs[f"gmm_bwd {name}"] = (lambda gx=gx, gw=gw, gdy=gdy: (
+            kgmm.launch(gdy, gw.transpose(1, 2)), kgmm.launch(gx.transpose(1, 2), gdy)))
+        runs[f"gmm_bwd {name} dx"] = lambda gw=gw, gdy=gdy: kgmm.launch(gdy, gw.transpose(1, 2))
+        runs[f"gmm_bwd {name} dw"] = lambda gx=gx, gdy=gdy: kgmm.launch(gx.transpose(1, 2), gdy)
+        runs[f"bmm {name} dx + dw"] = (lambda gx=gx, gw=gw, gdy=gdy: (
+            torch.bmm(gdy, gw.transpose(1, 2)), torch.bmm(gx.transpose(1, 2), gdy)))
+    attn_sdpa = [t.detach().requires_grad_(True) for t in attn[:3]]
+    out_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *attn_sdpa, is_causal=True, enable_gqa=True)
+    runs["sdpa backward"] = lambda: torch.autograd.grad(out_sdpa, attn_sdpa, attn[5],
+                                                        retain_graph=True)
     times = {name: ms(fn) for name, fn in runs.items()}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for fn in runs.values():

@@ -19,19 +19,30 @@
 //         copies of K steps of 64 into a ring of stages, each with a "full"
 //         mbarrier (TMA bytes) and an "empty" one (one arrival per consumer
 //         warp that reads it); the ring runs on across tiles, so the next
-//         tile's first steps land while this tile's epilogue stores. x's map
-//         is 3-d (D, C, E), K-major: a step is a box of 64 columns by the
-//         tile's rows in the 128-byte swizzle. w's map is 3-d (F, D, E),
-//         MN-major as the MoE layer gives it (F contiguous): a step is BN/64
-//         boxes of 64 columns by 64 rows. E is a map dimension, so a box
-//         never crosses an expert, and TMA zero-fills rows past C and columns
-//         past D or F. The consumer warpgroups run wgmma.m64nNk16 (bf16 in,
-//         fp32 accumulate) with A and B from shared memory, one commit group
-//         per step, keeping one group in flight while the step before it
-//         goes back to the loader. The epilogue stores bf16 from registers:
-//         a transpose across each quad of lanes (two shfl.xor rounds) gives
-//         each lane 8 consecutive columns, stored as 16 bytes, masking rows
-//         past C and columns past F. Two shapes:
+//         tile's first steps land while this tile's epilogue stores. Each
+//         operand's map is 3-d over its own layout, the axis of unit stride
+//         first, E last, so a box never crosses an expert, and TMA
+//         zero-fills past C, D and F; boxes are 64 elements of that axis in
+//         the 128-byte swizzle. Its layout is a template argument, and the
+//         wgmma descriptors and transpose bits follow it:
+//           x K-major (D contiguous, the forward's and dx's dy): a step is a
+//             box of 64 columns of D by the tile's rows; x MN-major (C
+//             contiguous: dw's xᵀ, a transposed view of the saved x): a box
+//             of 64 rows by 64 of D per consumer warpgroup;
+//           w MN-major (F contiguous, the MoE layer's weights and dw's dy): a
+//             step is BN/64 boxes of 64 columns by 64 rows of D; w K-major (D
+//             contiguous: dx's wᵀ, a transposed view of the weight): CL
+//             boxes of 64 columns of D by BN/CL rows of F.
+//         So the backward's products read wᵀ and xᵀ where they lie: the
+//         copies of them that an earlier design made (2.08 of its 2.85 ms at
+//         the training shapes) are gone. The consumer warpgroups run
+//         wgmma.m64nNk16 (bf16 in, fp32 accumulate) with A and B from shared
+//         memory, one commit group per step, keeping one group in flight
+//         while the step before it goes back to the loader. The epilogue
+//         stores bf16 from registers: a transpose across each quad of lanes
+//         (two shfl.xor rounds) gives each lane 8 consecutive columns,
+//         stored as 16 bytes, masking rows past C and columns past F. Two
+//         shapes:
 //           C > 64: 128 x 256 tiles, two consumer warpgroups of 64 rows
 //             (setmaxnreg moves registers from the loader to them), 4
 //             stages of 48 KB, in clusters of two CTAs that take two C tiles
@@ -51,10 +62,10 @@
 //             but put x, not w, in the ring's wide boxes and add a transposed
 //             epilogue, for no bytes saved. At C = 32 the tensor work is 2x
 //             what the product needs and still 1/5 of the byte bound.
-//         It takes operands TMA can describe: unit stride along the last
-//         axis, the other strides positive multiples of 8 elements (16
-//         bytes), 16-byte-aligned starts, and F a multiple of 8 (the
-//         epilogue's 16-byte stores into y's rows); the wrapper (gmm.py)
+//         It takes operands TMA can describe: unit stride along either of
+//         the last two axes, the other strides positive multiples of 8
+//         elements (16 bytes), 16-byte-aligned starts, and F a multiple of 8
+//         (the epilogue's 16-byte stores into y's rows); the wrapper (gmm.py)
 //         copies other bf16 operands into zero-padded contiguous ones first.
 //         Every mbarrier wait traps after about 2 s (mbar_wait) instead of
 //         spinning on a fault of the protocol: the trap ends the process's
@@ -79,7 +90,13 @@
 // 0.12 ms for torch.bmm (PERF.md). What bounds the prefill products now: a
 // build that skips the output stores is 3% faster, and the 128 x 256 tiles
 // compute 768 x 1536 outputs of each expert's 688 x 1408 (F = 1408 is 5.5
-// tiles) for 82% useful work.
+// tiles) for 82% useful work. The backward's two products at the training
+// step's shapes take 0.36-0.42 ms each, dx + dw 0.73-0.80 ms against 0.68-0.76
+// ms for two torch.bmm calls (scripts/backward_kernels.py, PERF.md): dw's
+// contraction is C = 688, 11 steps of 64, so a tile's epilogue weighs more
+// than in the forward: a build whose stores are never taken runs dw in 0.37
+// ms against 0.44 (scripts/gmm_variants.py), the ring running on across
+// tiles hiding the rest.
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -135,14 +152,17 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4], int t) {
   return high ? make_uint4(s0, s1, u2, u3) : make_uint4(u0, u1, s0, s1);
 }
 
-template <int N>
+template <int N, int A_MN, int B_MN>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
   static_assert(N == 128 || N == 256, "wgmma is written out for n128 and n256 only");
-  if constexpr (N == 128) wgmma_mn_n128(d, a, b, accumulate);
-  if constexpr (N == 256) wgmma_mn_n256(d, a, b, accumulate);
+  if constexpr (N == 128) wgmma_ss_n128<A_MN, B_MN>(d, a, b, accumulate);
+  if constexpr (N == 256) wgmma_ss_n256<A_MN, B_MN>(d, a, b, accumulate);
 }
 
-template <int NC, int BN, int CL>
+// A_MN: x is MN-major (unit stride along C, a transposed view); else K-major
+// (unit stride along D). B_MN: w is MN-major (unit stride along F); else
+// K-major (unit stride along D, a transposed view)
+template <int NC, int BN, int CL, int A_MN, int B_MN>
 __global__ void __launch_bounds__(Body<NC, BN, CL>::THREADS, 1)
 gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                bf16* __restrict__ y, int C, int F, int groups_c, int tiles_f, int groups,
@@ -199,14 +219,34 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
           const int s = it % ST;
           mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
           mbar_expect(full(s), G::STAGE);
-          tma_load_3d(a_at(s), &tx, kt * BK, m0, e, full(s));
+          // x: K-major, one box of 64 K columns by the tile's rows; MN-major,
+          // a box of 64 rows (M, contiguous) by 64 K rows per warpgroup
+          if constexpr (A_MN) {
 #pragma unroll
-          for (int p = rank; p < G::PANELS; p += CL) {
+            for (int p = 0; p < NC; ++p)
+              tma_load_3d(a_at(s) + p * PANEL, &tx, m0 + 64 * p, kt * BK, e, full(s));
+          } else {
+            tma_load_3d(a_at(s), &tx, kt * BK, m0, e, full(s));
+          }
+          // w: MN-major, boxes p = rank, rank + CL, ... of 64 columns (N) by
+          // 64 K rows; K-major, box `rank` of BN / CL rows (N) by 64 K
+          // columns. Each goes to the same offset of every CTA of the cluster
+          if constexpr (B_MN) {
+#pragma unroll
+            for (int p = rank; p < G::PANELS; p += CL) {
+              if constexpr (CL > 1)
+                tma_load_multicast_3d(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e,
+                                      full(s), (1 << CL) - 1);
+              else
+                tma_load_3d(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e, full(s));
+            }
+          } else {
+            constexpr int ROWS = BN / CL;
             if constexpr (CL > 1)
-              tma_load_multicast_3d(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e, full(s),
-                                 (1 << CL) - 1);
+              tma_load_multicast_3d(b_at(s) + rank * ROWS * 128, &tw, kt * BK, n0 + rank * ROWS,
+                                    e, full(s), (1 << CL) - 1);
             else
-              tma_load_3d(b_at(s) + p * PANEL, &tw, n0 + 64 * p, kt * BK, e, full(s));
+              tma_load_3d(b_at(s), &tw, kt * BK, n0, e, full(s));
           }
         }
       }
@@ -228,11 +268,17 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   const int grp = lane >> 2;
   const int tig = lane & 3;
   float acc[BN / 2];  // n8 tiles of the output, as mma.sync's C fragments
-  // stage 0's descriptors: A is this warpgroup's 64 rows, 32 bytes per k16
-  // along the swizzled row; B is 16 rows of 128 bytes per k16, its 64-column
-  // panels PANEL apart. A stage or a k16 step adds its offset / 16.
-  const uint64_t desc_a = make_desc(a_at(0) + w * 64 * 128, 16, 1024);
-  const uint64_t desc_b = make_desc(b_at(0), PANEL, 1024);
+  // stage 0's descriptors. This warpgroup's 64 rows of A start PANEL bytes
+  // into the stage per warpgroup in either layout (64 rows of 128 bytes, or
+  // one 64-row-wide panel). A K-major operand is rows of 128 bytes of K, 8
+  // rows a 1024-byte swizzle atom (SBO), and a k16 step is 32 bytes along
+  // the row; an MN-major one is 64-element panels PANEL apart (LBO), K rows
+  // of 128 bytes in 8-row atoms (SBO), and a k16 step is 16 rows, 2048
+  // bytes. A stage or a k16 step adds its offset / 16.
+  const uint64_t desc_a = make_desc(a_at(0) + w * PANEL, A_MN ? PANEL : 16, 1024);
+  const uint64_t desc_b = make_desc(b_at(0), B_MN ? PANEL : 16, 1024);
+  constexpr int A_STEP = A_MN ? 2048 / 16 : 32 / 16;
+  constexpr int B_STEP = B_MN ? 2048 / 16 : 32 / 16;
 
   // hands stage s back to every CTA of the cluster (lane j of each warp
   // signals rank j): all of them wrote into it
@@ -257,7 +303,8 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
       const uint64_t so = (s * G::STAGE) >> 4;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma<BN>(acc, desc_a + so + kk * 2, desc_b + so + kk * 128, kt > 0 || kk > 0);
+        wgmma<BN, A_MN, B_MN>(acc, desc_a + so + kk * A_STEP, desc_b + so + kk * B_STEP,
+                              kt > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<1>();  // the step before this one is done with its stage
       fence_regs(acc);
@@ -291,8 +338,10 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   }
 }
 
-// an (expert, row, column) bf16 operand with unit column stride as a 3-d TMA
-// map (column, row, expert) of 64-column x box_rows boxes, 128-byte swizzle
+// a bf16 operand as a 3-d TMA map (inner, outer, expert) over its own
+// layout: `inner` the axis of unit stride, `s_outer` and `s_expert` the
+// other two axes' element strides; 64-element x box_rows boxes in the
+// 128-byte swizzle
 bool make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int experts,
               long long s_row, long long s_expert, int box_rows) {
   EncodeTiled encode = encoder();
@@ -309,18 +358,23 @@ bool make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int experts
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NC, int BN, int CL>
+template <int NC, int BN, int CL, int A_MN, int B_MN>
 int launch_bf16(const void* x, const void* w, void* y, int E, int C, int D, int F,
                 const long long* s, cudaStream_t stream) {
   using G = Body<NC, BN, CL>;
   CUtensorMap tx, tw;
-  if (!make_map(&tx, x, D, C, E, s[1], s[0], G::BM) || !make_map(&tw, w, F, D, E, s[4], s[3], 64))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // x (E, C, D): (D, C, E) boxes of 64 x BM, or MN-major (C, D, E) of 64 x 64;
+  // w (E, D, F): (F, D, E) boxes of 64 x 64, or K-major (D, F, E) of 64 x BN / CL
+  const bool ok = (A_MN ? make_map(&tx, x, C, D, E, s[2], s[0], 64)
+                        : make_map(&tx, x, D, C, E, s[1], s[0], G::BM)) &&
+                  (B_MN ? make_map(&tw, w, F, D, E, s[4], s[3], 64)
+                        : make_map(&tw, w, D, F, E, s[5], s[3], BN / CL));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int groups_c = ((C + G::BM - 1) / G::BM + CL - 1) / CL;
   const int tiles_f = (F + BN - 1) / BN;
   const long long groups = static_cast<long long>(E) * groups_c * tiles_f;
   if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = gmm_bf16_wgmma<NC, BN, CL>;
+  auto kernel = gmm_bf16_wgmma<NC, BN, CL, A_MN, B_MN>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CL;
@@ -465,28 +519,54 @@ gmm_f32_fma(const float* __restrict__ x, const float* __restrict__ w, float* __r
 
 }  // namespace
 
+namespace {
+
+// the bf16 body at x's and w's layouts (x_t: x has unit stride along C, not
+// D; w_t: w has unit stride along D, not F)
+template <int NC, int BN, int CL>
+int launch_layouts(int x_t, int w_t, const void* x, const void* w, void* y, int E, int C, int D,
+                   int F, const long long* s, cudaStream_t st) {
+  if (x_t && w_t) return wg::launch_bf16<NC, BN, CL, 1, 0>(x, w, y, E, C, D, F, s, st);
+  if (x_t) return wg::launch_bf16<NC, BN, CL, 1, 1>(x, w, y, E, C, D, F, s, st);
+  if (w_t) return wg::launch_bf16<NC, BN, CL, 0, 0>(x, w, y, E, C, D, F, s, st);
+  return wg::launch_bf16<NC, BN, CL, 0, 1>(x, w, y, E, C, D, F, s, st);
+}
+
+// a TMA map describes the 3-d operand with strides s (expert, row, column)
+// at this layout: unit stride along the column (t 0) or the row (t 1), the
+// other two strides positive multiples of 8 elements (16 bytes)
+bool tma_strides(const long long* s, int t) {
+  const long long other = t ? s[2] : s[1];
+  return s[t ? 1 : 2] == 1 && s[0] > 0 && other > 0 && s[0] % 8 == 0 && other % 8 == 0;
+}
+
+}  // namespace
+
 // dtype: 0 fp32, 1 bf16. strides: 6 element strides, (expert, row, column)
-// of x then of w; y is a contiguous (E, C, F) tensor. Returns a CUDA error
-// code (0 when the launch was accepted); bf16 operands that the bf16 body
-// does not take return cudaErrorInvalidValue.
+// of x then of w; y is a contiguous (E, C, F) tensor. x_t, w_t: each bf16
+// operand's layout, 0 with unit stride along its last axis, 1 along its
+// middle one (a transposed view: dy @ w^T gives w_t 1, x^T @ dy x_t 1); the
+// fp32 body reads any strides and ignores them. Returns a CUDA error code (0
+// when the launch was accepted); bf16 operands that the bf16 body does not
+// take return cudaErrorInvalidValue.
 extern "C" int gmm_launch(int dtype, const void* x, const void* w, void* y, int E, int C,
-                          int D, int F, const long long* strides, void* stream) {
+                          int D, int F, const long long* strides, int x_t, int w_t,
+                          void* stream) {
   if (E <= 0 || E > 65535 || C <= 0 || D <= 0 || F <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // TMA: unit column strides, the others positive multiples of 16 bytes,
-    // 16-byte-aligned starts; F a multiple of 8 for the epilogue's stores
-    const bool tma = s[2] == 1 && s[5] == 1 && F % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(y) % 16 == 0;
-    const bool strides_ok = s[0] > 0 && s[1] > 0 && s[3] > 0 && s[4] > 0 && s[0] % 8 == 0 &&
-                            s[1] % 8 == 0 && s[3] % 8 == 0 && s[4] % 8 == 0;
-    if (!tma || !strides_ok) return static_cast<int>(cudaErrorInvalidValue);
-    if (C <= 64) return wg::launch_bf16<1, 128, 1>(x, w, y, E, C, D, F, s, st);
-    return wg::launch_bf16<2, 256, 2>(x, w, y, E, C, D, F, s, st);
+    // TMA: strides at the layouts given, 16-byte-aligned starts; F a
+    // multiple of 8 for the epilogue's 16-byte stores
+    const bool ok = tma_strides(s, x_t) && tma_strides(s + 3, w_t) && F % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+    if (!ok || (x_t != 0 && x_t != 1) || (w_t != 0 && w_t != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (C <= 64) return launch_layouts<1, 128, 1>(x_t, w_t, x, w, y, E, C, D, F, s, st);
+    return launch_layouts<2, 256, 2>(x_t, w_t, x, w, y, E, C, D, F, s, st);
   }
   if (dtype == 0) {
     const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);

@@ -51,7 +51,17 @@
 // taken as (dy x^T) dt on the exact bf16 x, and the scaled chunk terms of Sf
 // and Sb and the states h_in and dh_out enter their products as bf16 hi and
 // lo parts (two products, about 16 bits); only the operands of dx's, dB's
-// and dC's Q x Q products (the masked scores) are rounded to bf16.
+// and dC's Q x Q products (the masked scores) are rounded to bf16. The
+// chunk's cumsum is taken in fp64 and kept as fp32 hi and lo parts, and
+// every decay e^(cs_i - cs_j) is taken from the parts' differences
+// (`decay`): at a chunk of 4096 positions cs reaches the thousands, where
+// one fp32 value holds it to 1e-4, and the decays, and with them every
+// gradient, drifted up to 2.5e-4 from a float64 evaluation of the plain
+// backward (as the fp32 plain backward, whose cumsum is fp32, still does).
+// The cumsum's cotangent (rowsum(M) - colsum(M) - w, which cancels), its
+// reverse scan and A's gradient are summed in fp64 for the same reason.
+// There every gradient but A's now sits within 1e-6 of the float64
+// evaluation, A's within 9e-5 (scripts/backward_kernels.py).
 //
 // What bounds it on an H100: at mamba2-370m's training shape (B 8, S 1024,
 // H 32, P 64, G 1, N 128, Q 256, bf16) the plain backward's products need
@@ -86,12 +96,20 @@ struct Args {
   float* dA;            // (H,)
   void* dB;             // (B, S, G, N)
   void* dC;
-  // workspaces, fp32: cs, dcs and w (B, H, nc, Q); Sf -> h_in and Sb -> dh_out
-  // (B, H, nc, P, N); dB and dC per head (B, S, H, N); A's per (B, nc, H)
-  float *cs, *dcs, *w, *sf, *sb, *dbh, *dch, *dap;
+  // workspaces, fp32: cs, its lo part cl (cs + cl to about 48 bits), dcs and
+  // w (B, H, nc, Q); Sf -> h_in and Sb -> dh_out (B, H, nc, P, N); dB and dC
+  // per head (B, S, H, N); A's per (B, nc, H)
+  float *cs, *cl, *dcs, *w, *sf, *sb, *dbh, *dch, *dap;
   int B, S, H, G, P, N, Q, nc;
   long long sx[4], sdt[3], sb_[4], sc[4], sdy[4];  // element strides
 };
+
+// e^((a + al) - (b + bl)) for cumsums held as hi + lo parts: the hi parts'
+// difference is exact where they are close, as a decay's are, so the decay
+// keeps fp32 accuracy however large the cumsums
+__device__ __forceinline__ float decay(float a, float al, float b, float bl) {
+  return expf((a - b) + (al - bl));
+}
 
 __device__ __forceinline__ float dt_at(const Args& g, int b, int pos, int h) {
   return g.dt[b * g.sdt[0] + pos * g.sdt[1] + h * g.sdt[2]];
@@ -124,7 +142,8 @@ __global__ void __launch_bounds__(256) ssd_bwd_states(Args g) {
   float* fx = reinterpret_cast<float*>(Cs + TJ * LB);  // a tile's row factors
   float* fy = fx + TJ;
   float* cs = fy + TJ;
-  float* tmp = cs + g.Q;
+  float* cl = cs + g.Q;
+  double* tmp = reinterpret_cast<double*>(cl + g.Q);  // 8-byte aligned: 2 Q floats
 
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int grp = h / (g.H / g.G);
@@ -132,10 +151,13 @@ __global__ void __launch_bounds__(256) ssd_bwd_states(Args g) {
   const float a = g.A[h];
   for (int l = threadIdx.x; l < g.Q; l += blockDim.x)
     cs[l] = p0 + l < g.S ? dt_at(g, b, p0 + l, h) * a : 0.0f;
-  block_scan(cs, g.Q, false, tmp);
-  const float tot = cs[g.Q - 1];
-  float* csw = g.cs + ((static_cast<long long>(b) * g.H + h) * g.nc + c) * g.Q;
-  for (int l = threadIdx.x; l < g.Q; l += blockDim.x) csw[l] = cs[l];
+  block_scan(cs, g.Q, false, tmp, cl);
+  const float tot = cs[g.Q - 1], tot_l = cl[g.Q - 1];
+  const long long bhc = ((static_cast<long long>(b) * g.H + h) * g.nc + c) * g.Q;
+  for (int l = threadIdx.x; l < g.Q; l += blockDim.x) {
+    g.cs[bhc + l] = cs[l];
+    g.cl[bhc + l] = cl[l];
+  }
 
   const int warp = threadIdx.x >> 5;
   const int wr = warp & 3;
@@ -155,8 +177,8 @@ __global__ void __launch_bounds__(256) ssd_bwd_states(Args g) {
                            g.N);
     for (int r = threadIdx.x; r < TJ; r += blockDim.x) {
       const int l = j0 + r;
-      fx[r] = r < rows ? dt_at(g, b, p0 + l, h) * expf(tot - cs[l]) : 0.0f;
-      fy[r] = r < rows ? expf(cs[l]) : 0.0f;
+      fx[r] = r < rows ? dt_at(g, b, p0 + l, h) * decay(tot, tot_l, cs[l], cl[l]) : 0.0f;
+      fy[r] = r < rows ? decay(cs[l], cl[l], 0.0f, 0.0f) : 0.0f;
     }
     __syncthreads();
     for (int idx = threadIdx.x; idx < TJ * PW; idx += blockDim.x) {  // x dt e^(tot-cs), dy e^cs
@@ -200,6 +222,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass(Args g) {
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = static_cast<long long>(b) * g.H + h;
   const float* csw = g.cs + bh * g.nc * g.Q;
+  const float* clw = g.cl + bh * g.nc * g.Q;
   // one direction of the pass over `buf` (Sf -> h_in forwards from 0, or
   // Sb -> dh_out backwards from dstate): out(c) = carry; carry = carry
   // e^tot(c) + own(c)
@@ -209,12 +232,13 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass(Args g) {
     for (int j = 0; j < PASS_VEC; ++j) carry[j] = start != nullptr && j < nv ? start[j] : 0.0f;
     for (int c0 = 0; c0 < g.nc; c0 += PASS_AHEAD) {
       float own[PASS_AHEAD][PASS_VEC];
-      float decay[PASS_AHEAD];
+      float decay_[PASS_AHEAD];
 #pragma unroll
       for (int u = 0; u < PASS_AHEAD; ++u) {
         const int c = forward ? c0 + u : g.nc - 1 - c0 - u;
         const bool in = c0 + u < g.nc;
-        decay[u] = in ? expf(csw[c * g.Q + g.Q - 1]) : 0.0f;
+        decay_[u] = in ? decay(csw[c * g.Q + g.Q - 1], clw[c * g.Q + g.Q - 1], 0.0f, 0.0f)
+                       : 0.0f;
 #pragma unroll
         for (int j = 0; j < PASS_VEC; ++j)
           own[u][j] = in && j < nv ? buf[static_cast<long long>(c) * pn + j] : 0.0f;
@@ -226,7 +250,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass(Args g) {
 #pragma unroll
         for (int j = 0; j < PASS_VEC; ++j) {
           if (j < nv) buf[static_cast<long long>(c) * pn + j] = carry[j];
-          carry[j] = carry[j] * decay[u] + own[u][j];
+          carry[j] = carry[j] * decay_[u] + own[u][j];
         }
       }
     }
@@ -242,7 +266,7 @@ constexpr int chunk_smem() {
   constexpr int own = 2 * TJ * LB + 2 * TJ * LX;
   constexpr int loop = TJ * LB + TJ * LX + 2 * TJ * LS;
   constexpr int states = (sizeof(T) == 2 ? 2 : 1) * PW * LB;
-  return (own + (loop > states ? loop : states)) * static_cast<int>(sizeof(T)) + 4 * TJ * 4;
+  return (own + (loop > states ? loop : states)) * static_cast<int>(sizeof(T)) + 6 * TJ * 4;
 }
 
 template <typename T, int NW>
@@ -267,9 +291,11 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
   T* S1 = L2 + TJ * LX;  //   the scores^T, a warp's 16 rows each
   T* S2 = S1 + TJ * LS;  //   (dy xdt^T) o L, or its transpose
   float* cs_o = reinterpret_cast<float*>(Bo + own_elems + union_elems);
-  float* dt_o = cs_o + TJ;
+  float* cl_o = cs_o + TJ;  // lo parts
+  float* dt_o = cl_o + TJ;
   float* cs_l = dt_o + TJ;
-  float* dt_l = cs_l + TJ;
+  float* cl_l = cs_l + TJ;
+  float* dt_l = cl_l + TJ;
 
   // the chunk's tiles are neighbours in the grid: they read each other's
   // rows, which then come from L2
@@ -282,13 +308,15 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
   const int r0 = tile * TJ;
   const int p0 = c * g.Q;
   const float* csw = g.cs + bhc * g.Q;
-  const float tot = csw[g.Q - 1];
+  const float* clw = g.cl + bhc * g.Q;
+  const float tot = csw[g.Q - 1], tot_l = clw[g.Q - 1];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int own = rows_in(g, c, r0);
 
   for (int r = threadIdx.x; r < TJ; r += blockDim.x) {
     cs_o[r] = r0 + r < g.Q ? csw[r0 + r] : tot;
+    cl_o[r] = r0 + r < g.Q ? clw[r0 + r] : tot_l;
     dt_o[r] = r < own ? dt_at(g, b, p0 + r0 + r, h) : 0.0f;
   }
   load_tile<TJ, NW, 128>(Bo, LB, row4<T>(g.Bm, g.sb_, b, p0 + r0, grp), g.sb_[1], g.sb_[3], own,
@@ -308,8 +336,10 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
   float db[NW / 8][4];
   zero(dxdt);
   zero(db);
-  float wj[2] = {0.0f, 0.0f};
-  float colm[2] = {0.0f, 0.0f};
+  // the cumsum's cotangent, rowsum(M) - colsum(M) - w, cancels: its sums
+  // are taken in fp64
+  double wj[2] = {0.0, 0.0};
+  double colm[2] = {0.0, 0.0};
   mma<T, PW / 8, NW, false, false>(dxdt, Bo + w16 * LB, LB, Hs, LB);  // B dh_out^T
   mma<T, NW / 8, PW, false, true>(db, xo + w16 * LX, LX, Hs, LB);     // x dh_out
   if constexpr (SPLIT) {
@@ -321,7 +351,7 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rr = w16 + frag_row(e);
-      dxdt[t][e] *= expf(tot - cs_o[rr]);  // u
+      dxdt[t][e] *= decay(tot, tot_l, cs_o[rr], cl_o[rr]);  // u
       wj[e >> 1] += to_f32(xo[rr * LX + frag_col(t, e)]) * dt_o[rr] * dxdt[t][e];
     }
 #pragma unroll
@@ -329,7 +359,7 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rr = w16 + frag_row(e);
-      db[t][e] *= dt_o[rr] * expf(tot - cs_o[rr]);  // xdt dh_out e^(tot - cs)
+      db[t][e] *= dt_o[rr] * decay(tot, tot_l, cs_o[rr], cl_o[rr]);  // xdt dh_out e^(tot - cs)
     }
 
   T* S1w = S1 + w16 * LS;
@@ -342,7 +372,10 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
                            g.N);
     load_tile<TJ, PW, 128>(L2, LX, row4<T>(g.dy, g.sdy, b, p0 + i0, h), g.sdy[1], g.sdy[3], rows,
                            g.P);
-    for (int r = threadIdx.x; r < TJ; r += blockDim.x) cs_l[r] = i0 + r < g.Q ? csw[i0 + r] : tot;
+    for (int r = threadIdx.x; r < TJ; r += blockDim.x) {
+      cs_l[r] = i0 + r < g.Q ? csw[i0 + r] : tot;
+      cl_l[r] = i0 + r < g.Q ? clw[i0 + r] : tot_l;
+    }
     __syncthreads();
     float st[TJ / 8][4];
     float ds[TJ / 8][4];
@@ -356,7 +389,8 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
       for (int e = 0; e < 4; ++e) {
         const int rr = w16 + frag_row(e);
         const int ci = frag_col(t, e);
-        const float lm = i0 + ci >= r0 + rr ? expf(cs_l[ci] - cs_o[rr]) : 0.0f;
+        const float lm = i0 + ci >= r0 + rr ? decay(cs_l[ci], cl_l[ci], cs_o[rr], cl_o[rr])
+                                            : 0.0f;
         const float sc = st[t][e] * lm;
         const float dsc = ds[t][e] * dt_o[rr];  // (dy xdt^T)^T
         colm[e >> 1] += dsc * sc;
@@ -388,7 +422,7 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
       if (rr < own && n < g.N)
         g.dbh[((static_cast<long long>(b) * g.S + p0 + r0 + rr) * g.H + h) * g.N + n] = db[t][e];
     }
-  float dcs[2];
+  double dcs[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     ddt_x[half] = quad_sum(ddt_x[half]);
@@ -411,8 +445,9 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
 #pragma unroll
   for (int t = 0; t < NW / 8; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dc[t][e] *= expf(cs_o[w16 + frag_row(e)]);
-  float rowm[2] = {0.0f, 0.0f};
+    for (int e = 0; e < 4; ++e)
+      dc[t][e] *= decay(cs_o[w16 + frag_row(e)], cl_o[w16 + frag_row(e)], 0.0f, 0.0f);
+  double rowm[2] = {0.0, 0.0};
   {
     float ys[PW / 8][4];
     zero(ys);
@@ -423,7 +458,8 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int rr = w16 + frag_row(e);
-        rowm[e >> 1] += to_f32(Do[rr * LX + frag_col(t, e)]) * ys[t][e] * expf(cs_o[rr]);
+        rowm[e >> 1] += to_f32(Do[rr * LX + frag_col(t, e)]) * ys[t][e] *
+                        decay(cs_o[rr], cl_o[rr], 0.0f, 0.0f);
       }
   }
   for (int jt = 0; jt <= tile; ++jt) {
@@ -436,6 +472,7 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
                            g.P);
     for (int r = threadIdx.x; r < TJ; r += blockDim.x) {
       cs_l[r] = j0 + r < g.Q ? csw[j0 + r] : tot;
+      cl_l[r] = j0 + r < g.Q ? clw[j0 + r] : tot_l;
       dt_l[r] = r < rows ? dt_at(g, b, p0 + j0 + r, h) : 0.0f;
     }
     __syncthreads();
@@ -451,7 +488,8 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
       for (int e = 0; e < 4; ++e) {
         const int rr = w16 + frag_row(e);
         const int cj = frag_col(t, e);
-        const float lm = j0 + cj <= r0 + rr ? expf(cs_o[rr] - cs_l[cj]) : 0.0f;
+        const float lm = j0 + cj <= r0 + rr ? decay(cs_o[rr], cl_o[rr], cs_l[cj], cl_l[cj])
+                                            : 0.0f;
         const float dsc = ds[t][e] * dt_l[cj];  // dy xdt^T
         rowm[e >> 1] += dsc * s[t][e] * lm;
         S2w[frag_row(e) * LS + cj] = from_f32<T>(dsc * lm);
@@ -470,11 +508,11 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
     }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const float total = dcs[half] + quad_sum(rowm[half]);
+    const double total = dcs[half] + quad_sum(rowm[half]);
     const int rr = w16 + (lane >> 2) + 8 * half;
     if ((lane & 3) == 0 && r0 + rr < g.Q) {
-      g.dcs[bhc * g.Q + r0 + rr] = total;
-      g.w[bhc * g.Q + r0 + rr] = wj[half];
+      g.dcs[bhc * g.Q + r0 + rr] = static_cast<float>(total);
+      g.w[bhc * g.Q + r0 + rr] = static_cast<float>(wj[half]);
     }
   }
 }
@@ -482,31 +520,34 @@ __global__ void __launch_bounds__(128) ssd_bwd_chunk(Args g) {
 __global__ void __launch_bounds__(256) ssd_bwd_finish(Args g) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* v = reinterpret_cast<float*>(smem_raw);
-  float* tmp = v + g.Q;
+  float* vl = v + g.Q;  // lo parts of the reverse cumsum
+  double* tmp = reinterpret_cast<double*>(vl + g.Q);  // 8-byte aligned: 2 Q floats
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const long long bhc = (static_cast<long long>(b) * g.H + h) * g.nc + c;
   const int p0 = c * g.Q;
-  const float tot = g.cs[bhc * g.Q + g.Q - 1];
-  float wpart = 0.0f;
+  const float tot = g.cs[bhc * g.Q + g.Q - 1], tot_l = g.cl[bhc * g.Q + g.Q - 1];
+  double wpart = 0.0;
   for (int l = threadIdx.x; l < g.Q; l += blockDim.x) {
     v[l] = g.dcs[bhc * g.Q + l];
     wpart += g.w[bhc * g.Q + l];
   }
-  const float wsum = block_sum(wpart, tmp);
+  const double wsum = block_sum(wpart, tmp);
   const int pn = g.P * g.N;
   float dpart = 0.0f;
   for (int e = threadIdx.x; e < pn; e += blockDim.x)
     dpart += g.sf[bhc * pn + e] * g.sb[bhc * pn + e];
-  const float dtot = expf(tot) * block_sum(dpart, tmp) + wsum;
-  block_scan(v, g.Q, true, tmp);
+  // d(dt A) and A's gradient in fp64 from the scan's hi and lo parts: A's
+  // sums terms of both signs many times its size
+  const double dtot = decay(tot, tot_l, 0.0f, 0.0f) * block_sum(dpart, tmp) + wsum;
+  block_scan(v, g.Q, true, tmp, vl);
   const float a = g.A[h];
-  float apart = 0.0f;
+  double apart = 0.0;
   for (int l = threadIdx.x; l < g.Q && p0 + l < g.S; l += blockDim.x) {
-    const float dda = v[l] + dtot;
-    g.ddt[(static_cast<long long>(b) * g.S + p0 + l) * g.H + h] += dda * a;
+    const double dda = static_cast<double>(v[l]) + vl[l] + dtot;
+    g.ddt[(static_cast<long long>(b) * g.S + p0 + l) * g.H + h] += static_cast<float>(dda * a);
     apart += dda * dt_at(g, b, p0 + l, h);
   }
-  const float asum = block_sum(apart, tmp);
+  const double asum = block_sum(apart, tmp);
   if (threadIdx.x == 0) g.dap[(static_cast<long long>(b) * g.nc + c) * g.H + h] = asum;
 }
 
@@ -529,9 +570,9 @@ __global__ void __launch_bounds__(256) ssd_bwd_reduce(Args g, int blocks) {
     static_cast<T*>(isc ? g.dC : g.dB)[idx] = from_f32<T>(sum);
   } else {
     for (int h = threadIdx.x; h < g.H; h += blockDim.x) {
-      float sum = 0.0f;
+      double sum = 0.0;
       for (int bc = 0; bc < g.B * g.nc; ++bc) sum += g.dap[static_cast<long long>(bc) * g.H + h];
-      g.dA[h] = sum;
+      g.dA[h] = static_cast<float>(sum);
     }
   }
 }
@@ -541,10 +582,10 @@ int launch(Args& g, cudaStream_t s) {
   constexpr int LX = PW + PAD<T>, LB = NW + PAD<T>;
   const int states_bytes = ((sizeof(T) == 2 ? 4 : 2) * TJ * LX + 2 * TJ * LB) *
                                static_cast<int>(sizeof(T)) +
-                           (2 * TJ + g.Q + 256) * 4;
+                           (2 * TJ + 2 * g.Q) * 4 + 256 * 8;
   constexpr int chunk_bytes = chunk_smem<T, NW>();
   static_assert(chunk_bytes <= MAX_SMEM, "the chunk kernel's tiles exceed shared memory");
-  const int finish_bytes = (g.Q + 256) * 4;
+  const int finish_bytes = 2 * g.Q * 4 + 256 * 8;
   cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states<T, NW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          states_bytes);
@@ -567,14 +608,15 @@ int launch(Args& g, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the workspace's floats in Args's order: cs, dcs, w, sf, sb, dbh, dch, dap
+// the workspace's floats in Args's order: cs, cl, dcs, w, sf, sb, dbh, dch, dap
 void carve(float* ws, Args& g) {
   const long long bh = static_cast<long long>(g.B) * g.H;
   const long long pos = bh * g.nc * g.Q;
   const long long state = bh * g.nc * g.P * g.N;
   const long long head = static_cast<long long>(g.B) * g.S * g.H * g.N;
   g.cs = ws;
-  g.dcs = g.cs + pos;
+  g.cl = g.cs + pos;
+  g.dcs = g.cl + pos;
   g.w = g.dcs + pos;
   g.sf = g.w + pos;
   g.sb = g.sf + state;
@@ -589,7 +631,7 @@ void carve(float* ws, Args& g) {
 extern "C" long long ssd_scan_bwd_workspace(int B, int S, int H, int P, int N, int Q) {
   const long long nc = (S + Q - 1) / Q;
   const long long bh = static_cast<long long>(B) * H;
-  return 3 * bh * nc * Q + 2 * bh * nc * P * N + 2LL * B * S * H * N + B * nc * H;
+  return 4 * bh * nc * Q + 2 * bh * nc * P * N + 2LL * B * S * H * N + B * nc * H;
 }
 
 // dtype: 0 fp32, 1 bf16. strides: 19 element strides: x (4), dt (3), B (4),

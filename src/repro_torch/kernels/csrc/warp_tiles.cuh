@@ -101,7 +101,8 @@ __device__ __forceinline__ void mma(float (&acc)[NT][4], const T* a, int lda, co
 }
 
 // a row's sum over the four lanes of its quad
-__device__ __forceinline__ float quad_sum(float v) {
+template <typename V>
+__device__ __forceinline__ V quad_sum(V v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
@@ -177,49 +178,55 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const S* src, long lon
 
 // v[0 .. n) replaced by its inclusive prefix sums (from the end with
 // `reverse`), by the whole block, in a fixed order: a serial run per thread
-// over a contiguous stretch, then thread 0's serial scan of the runs.
-// `tmp` holds blockDim.x floats. Ends with the block synchronised.
-__device__ __forceinline__ void block_scan(float* v, int n, bool reverse, float* tmp) {
+// over a contiguous stretch, then thread 0's serial scan of the runs. The
+// sums are taken in fp64 and each rounded to fp32 once, and with `lo` each
+// sum's rounding error goes to lo[i], so v[i] + lo[i] holds it to about 48
+// bits: at a chunk of 4096 positions the SSD backward's cumsum reaches the
+// thousands, where fp32 keeps 1e-4 of a decay exp(cs_i - cs_j). `tmp` holds
+// blockDim.x doubles. Ends with the block synchronised.
+__device__ __forceinline__ void block_scan(float* v, int n, bool reverse, double* tmp,
+                                           float* lo = nullptr) {
   __syncthreads();
   const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * per;
-  const int hi = min(n, lo + per);
-  float run = 0.0f;
-  for (int i = lo; i < hi; ++i) {
-    float& x = v[reverse ? n - 1 - i : i];
-    run += x;
-    x = run;
-  }
+  const int first = threadIdx.x * per;
+  const int last = min(n, first + per);
+  double run = 0.0;
+  for (int i = first; i < last; ++i) run += v[reverse ? n - 1 - i : i];
   tmp[threadIdx.x] = run;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float acc = 0.0f;
+    double acc = 0.0;
     for (int t = 0; t < static_cast<int>(blockDim.x); ++t) {
-      const float r = tmp[t];
+      const double r = tmp[t];
       tmp[t] = acc;
       acc += r;
     }
   }
   __syncthreads();
-  const float off = tmp[threadIdx.x];
-  for (int i = lo; i < hi; ++i) v[reverse ? n - 1 - i : i] += off;
+  run = tmp[threadIdx.x];
+  for (int i = first; i < last; ++i) {
+    const int at = reverse ? n - 1 - i : i;
+    run += v[at];
+    v[at] = static_cast<float>(run);
+    if (lo != nullptr) lo[at] = static_cast<float>(run - static_cast<double>(v[at]));
+  }
   __syncthreads();
 }
 
 // the block's sum of each thread's `v`, in a fixed order (thread 0 adds the
-// threads' values in turn); every thread gets it. `tmp` holds blockDim.x
-// floats.
-__device__ __forceinline__ float block_sum(float v, float* tmp) {
+// threads' values in turn, in fp64); every thread gets it. `tmp` holds
+// blockDim.x doubles.
+__device__ __forceinline__ double block_sum(double v, double* tmp) {
   __syncthreads();
   tmp[threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float acc = 0.0f;
+    double acc = 0.0;
     for (int t = 0; t < static_cast<int>(blockDim.x); ++t) acc += tmp[t];
     tmp[0] = acc;
   }
   __syncthreads();
-  const float out = tmp[0];
+  const double out = tmp[0];
   __syncthreads();
   return out;
 }

@@ -28,15 +28,16 @@ directly, without the dispatcher. ``LAUNCHES`` counts kernel launches.
 
 Gradient (``FlashAttention``): the TPU kernel has no VJP, and the reference's
 models differentiate their jnp attention, the same function. On the card the
-gradient is two more hand-written kernels (``csrc/flash_attention_bwd.cu``,
-FlashAttention-2's backward on ``mma.sync``): dq, and dk with dv, from the
-saved q, k, v, the output and the rows' log-sum-exp, which the forward
-kernel writes only when a gradient will be taken (``with_lse``); so a
-backward counts two launches (``LAUNCHES`` and ``BACKWARD_LAUNCHES``). On
-the CPU it takes the plain backward, ``ref.flash_attention_bwd``. The
-launch is the custom op ``repro_torch::flash_attention_bwd`` (fake
-implementation and FLOP formula as the forward's). No atomics: the same
-inputs give bitwise the same gradients. The backward runs in a profiler
+gradient is two more hand-written kernels (``csrc/flash_attention_bwd.cu``:
+bf16 on ``wgmma`` with TMA, warp-specialised and persistent as the forward;
+fp32 on FMAs): dq, and dk with dv, from the saved q, k, v, the output and
+the rows' log-sum-exp, which the forward kernel writes only when a gradient
+will be taken (``with_lse``); so a backward counts two launches
+(``LAUNCHES`` and ``BACKWARD_LAUNCHES``). On the CPU it takes the plain
+backward, ``ref.flash_attention_bwd``. The launch is the custom op
+``repro_torch::flash_attention_bwd`` (fake implementation and FLOP formula
+as the forward's). No atomics: the same inputs give bitwise the same
+gradients. The backward runs in a profiler
 range, ``flash_attention.backward``, that gives its device time.
 """
 from __future__ import annotations
@@ -204,9 +205,10 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     ((B, heads, S, hd) views of new tensors in the model's (B, S, heads, hd)
     layout) from the forward's q, k, v, its output o, the log-sum-exp its
     launch wrote (``with_lse``) and o's cotangent do. Any strides with unit
-    stride along hd (a tensor without is copied). Raises on anything the
-    kernels do not take. The launches (``_launch_bwd``) are the custom op
-    ``repro_torch::flash_attention_bwd``, called as one where
+    stride along hd (a tensor without is copied, and in bf16, as in the
+    forward, one whose start or strides are off 16 bytes). Raises on
+    anything the kernels do not take. The launches (``_launch_bwd``) are the
+    custom op ``repro_torch::flash_attention_bwd``, called as one where
     ``kbuild.traced`` says so."""
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"the flash_attention backward runs on CUDA tensors, got {q.device}")
@@ -227,6 +229,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be float32 on {q.device}; got {lse.dtype} on {lse.device}")
     q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v, o, do))
+    if q.dtype == torch.bfloat16:  # TMA's 16-byte alignment, as the forward's
+        q, k, v, o, do = (t if _aligned16(t) else t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
     args = (q, k, v, o, lse, do)
     launch_op = torch.ops.repro_torch.flash_attention_bwd if kbuild.traced(*args) else _launch_bwd
@@ -246,7 +250,8 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
     dq = torch.empty((b, sq, h, hd), device=q.device, dtype=q.dtype)
     dk = torch.empty((b, skv, kvh, hd), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
-    dsum = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)  # D = rowsum(do o)
+    dsum = torch.empty(_workspace_shape(q.dtype, b, h, sq), device=q.device,
+                       dtype=torch.float32)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do) for s in t.stride()[:3]),
         *(s for t in (dq, dk, dv) for s in (t.stride(0), t.stride(2), t.stride(1))))
@@ -262,6 +267,16 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
     LAUNCHES += 2
     BACKWARD_LAUNCHES += 2
     return dq, dk, dv
+
+
+def _workspace_shape(dtype: torch.dtype, b: int, h: int, sq: int) -> tuple[int, ...]:
+    """The backward's fp32 workspace, which its first launch fills and its
+    second reads: D = rowsum(do o) as (B, H, Sq) in fp32; in bf16 each row's
+    lse (times log2 e) and D, (2, B, H, Sq rounded up to 128), which the
+    dk/dv launch reads by TMA in 64-row boxes."""
+    if dtype == torch.bfloat16:
+        return (2, b, h, -(-sq // 128) * 128)
+    return (b, h, sq)
 
 
 _bwd_op = torch.library.custom_op("repro_torch::flash_attention_bwd", _launch_bwd,

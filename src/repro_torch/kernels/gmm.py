@@ -11,15 +11,16 @@ how it is laid out (bf16 on ``wgmma`` with TMA, warp-specialised and
 persistent, with a 64-row body for C <= 64; fp32 as fp32 FMAs).
 
 fp32 operands are read through their strides (any strides), without a
-copy. The bf16 body reads its operands through TMA maps: it takes unit
-stride along the last axis, the other strides positive multiples of 8
-elements and a 16-byte-aligned start, which covers the MoE layer's buffers
-and views such as ``x[:, ::2]``; w's last axis (F) must also be a multiple
-of 8. ``launch`` copies any other bf16 operand into a zero-padded
-contiguous one first (the zeros add nothing to the products) and returns
-the unpadded columns. A fault of the bf16 body's barrier protocol traps
-after about 2 s instead of hanging the card, which ends the process's CUDA
-context.
+copy. The bf16 body reads each operand through a TMA map of its own layout:
+unit stride along either of its last two axes (``_layout``: 0 along the
+last, 1 along the middle one, a transposed view), the other strides
+positive multiples of 8 elements and a 16-byte-aligned start, which covers
+the MoE layer's buffers, views such as ``x[:, ::2]`` and the backward's
+transposed views; w's last axis (F) must also be a multiple of 8.
+``launch`` copies any other bf16 operand into a zero-padded contiguous one
+first (the zeros add nothing to the products) and returns the unpadded
+columns. A fault of the bf16 body's barrier protocol traps after about 2 s
+instead of hanging the card, which ends the process's CUDA context.
 
 Build: at first use, ``kernels.build`` compiles the source into a shared
 library with a plain C interface under ``build/kernels/``, loaded with
@@ -38,8 +39,8 @@ Gradient (``Gmm``): the TPU kernel has no VJP, and the reference's MoE
 layer differentiates its einsums, whose gradient is two more grouped
 products: ``dx[e] = dy[e] @ w[e]ᵀ`` and ``dw[e] = x[e]ᵀ @ dy[e]``, each in
 the operand's type with fp32 accumulation. On the card both are launches of
-the same kernel on transposed views (``launch`` copies a bf16 view that a
-TMA map cannot describe), so a product that needs both grads counts three
+the same kernel on the transposed views as they lie (wᵀ read K-major, xᵀ
+MN-major: no copy), so a product that needs both grads counts three
 launches; on the CPU they take the plain version.
 """
 from __future__ import annotations
@@ -75,7 +76,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, vp]
+        lib.gmm_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, vp, i32, i32, vp]
         lib.gmm_launch.restype = i32
         _lib = lib
     return _lib
@@ -121,10 +122,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, d: int, f: int) -> torch.Tensor:
     fp = w.shape[2]
     y = torch.empty((e, c, fp), device=x.device, dtype=x.dtype)
     strides = (ctypes.c_longlong * 6)(*x.stride(), *w.stride())
+    # each bf16 operand's layout (the fp32 body reads any strides)
+    x_t, w_t = (_layout(x) or 0, _layout(w) or 0) if x.dtype == torch.bfloat16 else (0, 0)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.gmm_launch(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                             e, c, d, fp, strides,
+                             e, c, d, fp, strides, x_t, w_t,
                              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
@@ -149,8 +152,9 @@ def flops(x_shape, w_shape, d: int, f: int, *args, out_shape=None, **kwargs) -> 
 
 def _tma_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The bf16 body's operands: each as it is where a TMA map describes it
-    (and, for w, F is a multiple of 8), else a zero-padded contiguous copy
-    (8-aligned D for x, F for w). The kernel is given the unpadded D."""
+    (and, for w, F is a multiple of 8), transposed views included, else a
+    zero-padded contiguous copy (8-aligned D for x, F for w). The kernel is
+    given the unpadded D."""
     if not _fits_bf16_body(x):
         x = _padded(x, x.shape[1], x.shape[2] + -x.shape[2] % 8)
     if not (_fits_bf16_body(w) and w.shape[2] % 8 == 0):
@@ -158,12 +162,23 @@ def _tma_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch
     return x, w
 
 
+def _layout(t: torch.Tensor) -> Optional[int]:
+    """The layout a TMA map reads ``t`` (3-d) in: 0 with unit stride along
+    the last axis, 1 along the middle one (a transposed view: the backward's
+    wᵀ and xᵀ), the other two strides positive multiples of 8 elements (16
+    bytes) and the start 16-byte aligned; None where no map describes it."""
+    if not kbuild.start_aligned(t):
+        return None
+    for layout, unit, other in ((0, 2, 1), (1, 1, 2)):
+        if t.stride(unit) == 1 and all(s > 0 and s % 8 == 0
+                                       for s in (t.stride(0), t.stride(other))):
+            return layout
+    return None
+
+
 def _fits_bf16_body(t: torch.Tensor) -> bool:
-    """Whether a TMA map describes ``t`` (3-d) as it is: unit stride along
-    the last axis, the other strides positive multiples of 8 elements (16
-    bytes) and the start 16-byte aligned."""
-    return (t.stride(2) == 1 and all(s > 0 and s % 8 == 0 for s in t.stride()[:2])
-            and kbuild.start_aligned(t))
+    """Whether a TMA map describes ``t`` (3-d) as it is, in either layout."""
+    return _layout(t) is not None
 
 
 def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -194,6 +209,7 @@ class Gmm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # the transposed views go to the kernel as they lie (see _layout)
         x, w = ctx.saved_tensors
         dx = _product(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
         dw = _product(x.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None

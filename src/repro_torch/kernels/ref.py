@@ -151,12 +151,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int) -> tuple[torch.Tensor, torch.Tenso
 
 
 def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dstate: Optional[torch.Tensor],
-                    chunk: int) -> tuple:
+                    chunk: int, acc: torch.dtype = torch.float32) -> tuple:
     """The gradient of ``ssd_chunked`` written out, as the backward kernels
     compute it: (dx, ddt, dA, dB, dC) in the inputs' dtypes from the
     forward's inputs, y's cotangent ``dy`` and the final state's
-    ``dstate`` (None for none). fp32 throughout, per chunk c (cs the chunk's
-    cumsum of dt·A, tot its last entry, L the masked decay, xdt = x·dt):
+    ``dstate`` (None for none). fp32 throughout (``acc``: float64 gives the
+    oracle that the fp32 checks at long chunks are held to), per chunk c
+    (cs the chunk's cumsum of dt·A, tot its last entry, L the masked decay,
+    xdt = x·dt):
     1. the chunks' own state terms, Sf = Σ_j xdt_jᵀ B_j e^(tot-cs_j) and
        Sb = Σ_i e^(cs_i) dy_iᵀ C_i;
     2. the states passed over the chunks: h_in(c+1) = e^tot h_in(c) + Sf(c)
@@ -175,8 +177,8 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dstate: Optional[torch.Tensor],
     pad = (-s) % q
     nc = (s + pad) // q
 
-    def chunked(t, inner):  # (B, S, heads, *inner) fp32 -> (B, nc, Q, heads, *inner)
-        t = t.float()
+    def chunked(t, inner):  # (B, S, heads, *inner) in acc -> (B, nc, Q, heads, *inner)
+        t = t.to(acc)
         if pad:
             t = F.pad(t, (0, 0) * inner + (0, 0, 0, pad))
         return t.reshape(b, nc, q, *t.shape[2:])
@@ -184,7 +186,7 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dstate: Optional[torch.Tensor],
     xf, dyf, dtf = chunked(x, 1), chunked(dy, 1), chunked(dt, 0)
     bg = chunked(Bm.repeat_interleave(hg, dim=2), 1)
     cg = chunked(Cm.repeat_interleave(hg, dim=2), 1)
-    af = A.float()
+    af = A.to(acc)
     da = dtf * af  # (B, nc, Q, H)
     cs = torch.cumsum(da, dim=2)
     tot = cs[:, :, -1]  # (B, nc, H)
@@ -195,13 +197,13 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dstate: Optional[torch.Tensor],
     sf = torch.einsum("bcjhn,bcjhp->bchpn", bg * eout[..., None], xdt)
     sb = torch.einsum("bcihp,bcihn->bchpn", dyf * ecs[..., None], cg)
     etot = torch.exp(tot)[..., None, None]
-    h_in, state = [], torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in, state = [], torch.zeros((b, h, p, n), dtype=acc, device=x.device)
     for c in range(nc):
         h_in.append(state)
         state = state * etot[:, c] + sf[:, c]
     dh_out = [None] * nc
-    carry = (dstate.float() if dstate is not None
-             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    carry = (dstate.to(acc) if dstate is not None
+             else torch.zeros((b, h, p, n), dtype=acc, device=x.device))
     for c in reversed(range(nc)):
         dh_out[c] = carry
         carry = carry * etot[:, c] + sb[:, c]

@@ -617,6 +617,23 @@ def test_gmm_backward_matches_plain_version_on_card(e, c, d, f, dtype):
         assert _rel_to_max(g, p) < GMM_TOL[dtype]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f,view", chip_smoke.GMM_BWD_EDGES)
+def test_gmm_backward_reads_transposed_views_without_a_copy_on_card(e, c, d, f, view, dtype):
+    """K4's backward at the transposed layouts' edges (chip_smoke's
+    GMM_BWD_EDGES: C ragged and at most 64, D and F off 64, expert-strided
+    views, and a w whose row stride no TMA map takes): dx and dw within
+    GMM_TOL of autograd through the plain version, two launches, twice
+    bitwise, and an operand copy only where no map describes wᵀ (bf16)."""
+    _need_sm90()
+    gen = torch.Generator("cuda").manual_seed(14)
+    rec = chip_smoke.check_gmm_backward(e, c, d, f, getattr(torch, dtype), gen, view=view)
+    assert rec["launches"] == 2 and rec["bitwise"]
+    assert max(rec["dx_rel_err"], rec["dw_rel_err"]) <= GMM_TOL[dtype]
+    assert rec["operand_copies"] == (1 if view == "unaligned w" and dtype == "bfloat16" else 0)
+
+
 # the backward kernels: a ragged tail with G > 1, a single chunk (S < Q),
 # mamba2-370m's widths at a ragged S (G 1, 32 heads sharing B and C),
 # zamba2-7b's H 112 N 64, and a cluster edge (S 4096) in mamba2's ranges;

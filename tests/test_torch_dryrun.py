@@ -49,6 +49,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 from repro_torch.train.optim import make_optimizer  # noqa: E402
 
@@ -186,6 +187,54 @@ def test_fake_implementations_give_the_kernels_outputs_and_launch_nothing(case):
         assert g.shape == w.shape and g.dtype == w.dtype
         # new contiguous tensors (K2's in the model's (B, S, H, hd) layout)
         assert g.is_contiguous()
+
+
+class _BytesByOp(dryrun.StepCounter):
+    """The counter's bytes, split by op."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_op: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.bytes
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if self.bytes != before:
+            name = str(func)
+            self.by_op[name] = self.by_op.get(name, 0) + self.bytes - before
+        return out
+
+
+@pytest.mark.parametrize("d_stride", [None, 68])
+def test_traced_moe_backward_counts_no_operand_copy(d_stride):
+    """The MoE layer's expert products (``moe.expert_ffn``, bf16) traced
+    forward and backward on meta tensors, the path of a shape-only trace:
+    K4's backward launches read the transposed views as they lie, so the
+    counter sees no copy, and the bytes it counts for the kernel's op are
+    each of the nine launches' operands read once and its output written
+    once. The control, a wo (E, F, D) whose row stride (68 for 64 columns)
+    no TMA map takes, counts the copies the card makes of it."""
+    e, c, d, f = 4, 40, 64, 48
+    cfg = configs.smoke("qwen2_moe_a2_7b").scaled(compute_dtype="bfloat16")
+    bf = torch.bfloat16
+    buf = torch.empty((e, c, d), dtype=bf, device="meta", requires_grad=True)
+    wg, wu = (torch.empty((e, d, f), dtype=bf, device="meta", requires_grad=True)
+              for _ in range(2))
+    wo = torch.empty((e, f, d_stride or d), dtype=bf, device="meta")[..., :d]
+    wo.requires_grad_(True)
+    with _BytesByOp() as counter:
+        y = moe_model.expert_ffn(buf, wg, wu, wo, cfg)
+        grads = torch.autograd.grad(y, (buf, wg, wu, wo), torch.empty_like(y))
+    assert [g.shape for g in grads] == [t.shape for t in (buf, wg, wu, wo)]
+    copies = sum(b for op, b in counter.by_op.items() if "copy" in op or "zero" in op)
+    # three products forward, and dx and dw of each: every launch reads an
+    # (E, C, D)-sized, a (D, F)-sized and writes a (C, F)-sized operand
+    want = 2 * 9 * (e * c * d + e * d * f + e * c * f)
+    if d_stride is None:
+        assert copies == 0, counter.by_op
+        assert counter.by_op["repro_torch.gmm.default"] == want
+    else:
+        assert copies > 0, counter.by_op
 
 
 FORMULA_SHAPES = {

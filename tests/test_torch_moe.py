@@ -120,12 +120,13 @@ def test_gmm_gradient_matches_jax_grad(e, c, d, f, strided):
 @pytest.mark.parametrize("e,c,d,f", [(3, 45, 40, 70), (2, 100, 70, 30), (3, 129, 33, 257)])
 def test_gmm_pads_what_the_bf16_body_cannot_read(e, c, d, f):
     """The wrapper's copy for bf16 operands the kernel's bf16 body does not
-    take: zeros past D and F leave the product's first F columns unchanged.
-    Contiguous operands with D and F multiples of 8 are read as they are."""
+    take (here a w whose row stride, F + 1, is no multiple of 8): zeros past
+    D and F leave the product's first F columns unchanged. Contiguous
+    operands with D and F multiples of 8 are read as they are."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(e, 2 * c, d)).astype(np.float32)).bfloat16()[:, ::2]
-    w = torch.from_numpy(rng.normal(size=(e, f, d)).astype(np.float32)).bfloat16().transpose(1, 2)
-    assert not tgmm._fits_bf16_body(w)  # unit stride along D, not F
+    w = torch.from_numpy(rng.normal(size=(e, d, f + 1)).astype(np.float32)).bfloat16()[..., :f]
+    assert not tgmm._fits_bf16_body(w)  # unit stride along F, its row stride F + 1
     dp, fp = d + -d % 8, f + -f % 8
     xp, wp = tgmm._padded(x, c, dp), tgmm._padded(w, dp, fp)
     assert xp.is_contiguous() and wp.is_contiguous() and wp.shape == (e, dp, fp)
@@ -140,24 +141,83 @@ def test_gmm_pads_what_the_bf16_body_cannot_read(e, c, d, f):
 
 @pytest.mark.parametrize("e,c,d,f", [(3, 45, 40, 72), (2, 33, 1000, 1408), (60, 8, 64, 256)])
 def test_gmm_reads_tma_describable_views_as_they_are(e, c, d, f):
-    """The bf16 body reads x[:, ::2] and contiguous operands through its TMA
-    maps without a copy; a transposed w, and one whose F is not a multiple of
-    8, are copied into zero-padded contiguous operands."""
+    """The bf16 body reads x[:, ::2], contiguous operands and transposed
+    views (unit stride along D for w, along C for x) through TMA maps of
+    their own layout, without a copy; a w whose F is not a multiple of 8,
+    and operands whose strides no map describes, are copied into
+    zero-padded contiguous operands."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(e, 2 * c, d)).astype(np.float32)).bfloat16()[:, ::2]
     w = torch.from_numpy(rng.normal(size=(e, d, f)).astype(np.float32)).bfloat16()
-    xs, ws = tgmm._tma_operands(x, w)
-    assert xs.data_ptr() == x.data_ptr() and ws.data_ptr() == w.data_ptr()
     wt = w.transpose(1, 2).contiguous().transpose(1, 2)  # unit stride along D
+    # unit stride along C, a D stride of C rounded up to 8
+    xt = torch.zeros((e, d, c + -c % 8), dtype=torch.bfloat16)[..., :c].transpose(1, 2)
+    xt.copy_(x)
+    for xa, wa in ((x, w), (x, wt), (xt, w), (xt, wt)):
+        xs, ws = tgmm._tma_operands(xa, wa)
+        assert xs is xa and ws is wa
     narrow = w[:, :, :f - 3]
-    for other in (wt, narrow):
+    w_odd = torch.zeros((e, f, d + 1), dtype=torch.bfloat16)[..., :d].transpose(1, 2)
+    for other in (narrow, w_odd):  # F off 8; unit stride along D, an F stride of D + 1
         xs, ws = tgmm._tma_operands(x, other)
-        assert xs.data_ptr() == x.data_ptr() and ws.is_contiguous()
+        assert xs is x and ws.is_contiguous()
         assert ws.shape == (e, d, other.shape[2] + -other.shape[2] % 8)
         assert torch.equal(ws[..., :other.shape[2]], other) and not ws[..., other.shape[2]:].any()
-    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # unit stride along C
-    xs, _ = tgmm._tma_operands(xt, w)
-    assert xs.is_contiguous() and torch.equal(xs[..., :d], xt) and not xs[..., d:].any()
+    x_odd = torch.zeros((e, d, 2 * c + 1), dtype=torch.bfloat16)[..., :c].transpose(1, 2)
+    xs, _ = tgmm._tma_operands(x_odd, w)  # unit stride along C, a D stride of 2C + 1
+    assert xs.is_contiguous() and torch.equal(xs[..., :d], x_odd) and not xs[..., d:].any()
+
+
+@pytest.mark.parametrize("view,layout", [
+    ("contiguous", 0), ("rows ::2", 0), ("transposed", 1), ("transposed expert-strided", 1),
+    ("expert-strided", 0), ("stride 12", None), ("transposed stride 12", None),
+    ("offset start", None), ("column stride 2", None)])
+def test_gmm_layout_flag_of_each_operand(view, layout):
+    """``gmm._layout``: the layout the kernel is told for a bf16 operand (0:
+    unit stride along its last axis, 1: along its middle axis), or None where
+    no TMA map describes it and ``launch`` copies it."""
+    base = torch.zeros((4, 48, 64), dtype=torch.bfloat16)
+    t = {"contiguous": base, "rows ::2": base[:, ::2],
+         "transposed": base.transpose(1, 2),
+         "transposed expert-strided": base[::2].transpose(1, 2),
+         "expert-strided": base[1::2],
+         "stride 12": torch.zeros((4, 48, 12), dtype=torch.bfloat16)[..., :8],
+         "transposed stride 12": torch.zeros((4, 48, 12), dtype=torch.bfloat16)[..., :8]
+         .transpose(1, 2),
+         "offset start": base.flatten()[1:1 + 4 * 48 * 56].view(4, 48, 56),
+         "column stride 2": base[..., ::2]}[view]
+    assert tgmm._layout(t) == layout
+    assert tgmm._fits_bf16_body(t) == (layout is not None)
+
+
+@pytest.mark.parametrize("e,c,d,f", [(3, 688, 64, 48), (2, 100, 72, 40), (4, 33, 16, 24)])
+def test_gmm_backward_passes_transposed_views_as_they_are(monkeypatch, e, c, d, f):
+    """On meta tensors (the path a shape-only trace takes), ``Gmm.backward``'s
+    transposed views wᵀ and xᵀ reach the launch as they are: no operand is
+    copied, dx's launch reads w at layout 1 (unit stride along D) and dy at
+    0, dw's xᵀ at 1 and dy at 0. Two launches, dx then dw."""
+    copies, seen = [], []
+    padded, operands = tgmm._padded, tgmm._tma_operands
+    monkeypatch.setattr(tgmm, "_padded", lambda *a: copies.append(a) or padded(*a))
+
+    def recording(x, w):
+        got = operands(x, w)
+        seen.append((got, (x, w)))
+        return got
+
+    monkeypatch.setattr(tgmm, "_tma_operands", recording)
+    x = torch.empty((e, c, d), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    w = torch.empty((e, d, f), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    y = tgmm.gmm(x, w)
+    assert y.shape == (e, c, f) and len(seen) == 1
+    dx, dw = torch.autograd.grad(y, (x, w), torch.empty_like(y))
+    assert dx.shape == x.shape and dw.shape == w.shape and dx.dtype == dw.dtype == x.dtype
+    assert not copies and len(seen) == 3
+    for (got, passed) in seen:
+        assert all(g is p for g, p in zip(got, passed))
+    (dx_a, dx_b), (dw_a, dw_b) = seen[1][0], seen[2][0]
+    assert (dx_b.shape, dw_a.shape) == ((e, f, d), (e, d, c))
+    assert [tgmm._layout(t) for t in (dx_a, dx_b, dw_a, dw_b)] == [0, 1, 1, 0]
 
 
 def test_capacity_matches_reference():

@@ -267,6 +267,26 @@ def test_scan_gradient_matches_jax_grad(b, s, h, p, g, n, chunk, with_state):
     assert scan_grad_err(b, s, h, p, g, n, chunk, with_state) < GRAD_TOL
 
 
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SCAN_SHAPES[:2])
+def test_plain_scan_backward_sums_in_float64_on_request(b, s, h, p, g, n, chunk):
+    """``ref.ssd_chunked_bwd(..., acc=torch.float64)`` on float64 inputs,
+    the oracle that the card's fp32 backward at a chunk of 4096 is held to:
+    float64 gradients of the same function, within GRAD_TOL (over max(1,
+    max)) of ``jax.vjp``'s fp32 ones on the same inputs and cotangents."""
+    inputs = scan_inputs(b, s, h, p, g, n, seed=6)
+    rng = np.random.default_rng(7)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dst = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    want = _chunked_vjp(tuple(map(jnp.asarray, inputs)), (jnp.asarray(dy), jnp.asarray(dst)),
+                        chunk=chunk)
+    got = ref.ssd_chunked_bwd(*(t.double() for t in _t(*inputs, dy, dst)), chunk,
+                              acc=torch.float64)
+    for gr, w in zip(got, want, strict=True):
+        w = np.asarray(w)
+        assert gr.dtype == torch.float64 and gr.shape == w.shape
+        assert np.max(np.abs(gr.numpy() - w)) / max(1.0, np.abs(w).max()) < GRAD_TOL
+
+
 # bf16: the written-out plain backward against autograd of the plain forward
 # (ref.vjp), each gradient relative to its largest value: the two round at
 # other places (the plain forward rounds nothing inside, its autograd rounds

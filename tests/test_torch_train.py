@@ -519,11 +519,15 @@ def test_failure_injection_and_resume(tmp_path):
 
 def test_straggler_watchdog(tmp_path):
     step, fresh_state, batch_at = _tiny()
-    slow = {20}
+    calls = []
 
-    def batch_slow(i):  # 2 s: far above 3x a CPU step, also on a loaded machine
-        if i in slow:
-            time.sleep(2.0)
+    def batch_slow(i):
+        # step 20 is slow against the steps before it however loaded the
+        # machine is: it sleeps 10 times their median (the gaps between
+        # these calls, each a whole step), and at least 2 s
+        if i == 20:
+            time.sleep(max(2.0, 10 * float(np.median(np.diff(calls)))))
+        calls.append(time.monotonic())
         return batch_at(i)
 
     lcfg = LoopConfig(total_steps=25, ckpt_every=100, ckpt_dir=str(tmp_path),
