@@ -233,6 +233,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -387,6 +388,19 @@ SSD_EDGES = [(2, 4096, 32, 64, 1, 128, 256), (2, 8192, 32, 64, 1, 128, 256),
 # K3's fp32 backward at a chunk of 4096, held against the plain backward in
 # float64 (scripts/backward_kernels.py's shape)
 SSD_BWD_EXACT = (1, 4096, 2, 64, 1, 128, 4096)
+# the backward's own edges (its chunk launch sums each group's heads over
+# slices of them, walks a chunk's 64-position tiles in pairs, and reads x,
+# B, C and dy through TMA maps in bf16): a group's heads over several
+# slices (G 1 H 32; G 2 H 8 at a ragged S; zamba2's H 112 N 64), chunks of
+# 64 (one tile) and 4096 (64 tiles), S < 64, a chunk of 200 (its last tile
+# 8 positions), and P 60, whose x and dy no map reads (padded copies);
+# (b, s, h, p, g, n, chunk). fp32 is held against the plain backward in
+# float64: the fp32 plain backward is itself off by 1.8e-4 at (1, 512, 32,
+# ...) in these draws, and by up to 2e-3 at chunk 4096
+SSD_BWD_EDGES = [(1, 512, 32, 64, 1, 128, 256), (1, 900, 8, 64, 2, 128, 256), ZAMBA_SSD,
+                 (2, 300, 4, 64, 1, 128, 64), (1, 4096, 2, 64, 1, 128, 4096),
+                 (2, 40, 4, 32, 1, 64, 256), (2, 700, 4, 64, 1, 128, 200),
+                 (1, 300, 4, 60, 1, 128, 128)]
 # serve_ssm: decode steps over the prompt's first tokens from a zero cache,
 # held against a forward over those tokens: in fp32 compute (the recurrence
 # against the chunked scan, fp32 through 48 layers) at 1e-3, and the timed
@@ -2163,7 +2177,10 @@ def check_ssd_backward(shape, dtype, gen, ranges: str = "normal",
     x, dt, A, Bm, Cm = ssd_inputs(b, s, h, p, g, n, dtype, gen, ranges)
     dy = torch.randn(x.shape, generator=gen, device=DEV).to(dtype)
     dst = torch.randn((b, h, p, n), generator=gen, device=DEV) if with_state else None
+    copies, launches = ssd_scan.OPERAND_COPIES, ssd_scan.BACKWARD_LAUNCHES
     got = ssd_scan.launch_bwd(x, dt, A, Bm, Cm, dy, dst, chunk=chunk)
+    copies = ssd_scan.OPERAND_COPIES - copies
+    launches = ssd_scan.BACKWARD_LAUNCHES - launches
     again = ssd_scan.launch_bwd(x, dt, A, Bm, Cm, dy, dst, chunk=chunk)
     want = ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dst, chunk)
     names = ("dx", "ddt", "dA", "dB", "dC")
@@ -2180,9 +2197,12 @@ def check_ssd_backward(shape, dtype, gen, ranges: str = "normal",
            "max_abs_err": max((gr.float() - w.float()).abs().max().item()
                               for gr, w in zip(got, want)),
            "bitwise": all(torch.equal(a, c) for a, c in zip(got, again)),
-           "tol": BWD_TOL[dtype]}
+           "tol": BWD_TOL[dtype], "launches": launches, "operand_copies": copies,
+           "plan": dataclasses.asdict(ssd_scan.bwd_plan(b, s, h, p, g, n, chunk,
+                                                       kbuild.device_info(0)[1]))}
     finite = all(torch.isfinite(gr.float()).all() for gr in got)
-    if not (finite and rec["bitwise"] and max(rec["rel_err"].values()) <= BWD_TOL[dtype]):
+    if not (finite and rec["bitwise"] and max(rec["rel_err"].values()) <= BWD_TOL[dtype]
+            and launches == ssd_scan.BWD_LAUNCHES):
         raise AssertionError(f"the ssd_scan backward disagrees with the plain backward: {rec}")
     return rec
 
@@ -2223,6 +2243,16 @@ def ssd_phase(card: str) -> dict:
     bwd.append(check_ssd_backward(SSD_BWD_EXACT, torch.float32, gen, exact=True))
     bwd_main = check_ssd_backward(SERVE_SSD, torch.bfloat16, gen, ranges="model")
     bwd.append(bwd_main)
+    # the edges after them, which keeps the draws of the checks above as they were
+    bwd_edges = [check_ssd_backward(shape, dtype, gen, with_state=i % 2 == 1,
+                                    exact=dtype == torch.float32)
+                 for i, shape in enumerate(SSD_BWD_EDGES)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    for r in bwd_edges:  # the padded copies are bf16's alone (fp32 reads through strides)
+        want = 2 if r["shape"][3] % 8 and r["dtype"] == "bfloat16" else 0
+        if r["operand_copies"] != want:
+            raise AssertionError(f"the ssd_scan backward copied {r['operand_copies']} "
+                                 f"operands, not {want}: {r}")
     worst = max(r["rel_err"] / r["tol"] for r in records)
     worst_state = max(r["state_rel_err"] for r in records) / SSD_TOL[torch.float32]
     controls = [(r["shape"], name, v) for r in records
@@ -2247,6 +2277,12 @@ def ssd_phase(card: str) -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, "
               f"operations {r['bound_ops_ms']:.4f}); wrapper {r['host_us']:.2f} µs of host time "
               f"a call; y {r['rel_err']:.3g} of max |y|, state {r['state_rel_err']:.3g}  [{card}]")
+    worst_edge = max(max(r["rel_err"].values()) / r["tol"] for r in bwd_edges)
+    print(f"ssd: backward edges, {len(bwd_edges)} checks (fp32 and bf16; slices "
+          + ", ".join(f"{r['shape']} {r['plan']['slices']}" for r in bwd_edges[::2])
+          + f"): worst {worst_edge:.3g} of its tolerance, each twice bitwise, "
+          f"{ssd_scan.BWD_LAUNCHES} launches a call; operand copies only at P 60 in bf16 "
+          f"(x and dy)  [{card}]")
     worst_bwd = max(max(r["rel_err"].values()) / r["tol"] for r in bwd)
     print(f"ssd: backward kernels, {len(bwd)} checks against the plain backward (fp32 and "
           f"bf16; the same shapes, the edges in mamba2's ranges, with and without the final "
@@ -2261,7 +2297,8 @@ def ssd_phase(card: str) -> dict:
           + " (limit 1e-4); the fp32 plain backward " + ", ".join(
               f"{k} {v:.3g}" for k, v in exact["plain_rel_err"].items()) + f"  [{card}]")
     return {"records": records, "main": main, "zamba": zamba, "seq_err": seq_err,
-            "controls": controls, "backward": bwd, "backward_main": bwd_main}
+            "controls": controls, "backward": bwd, "backward_main": bwd_main,
+            "backward_edges": bwd_edges}
 
 
 def gmm_bound_parts_ms(e, c, d, f, dtype) -> tuple[float, float]:
@@ -2955,8 +2992,16 @@ def _train_breakdown(prof: _RawProfile, steps_run: int) -> dict:
     by = {name: sum(v for k, v in per_kernel.items() if any(key in k for key in keys))
           for name, keys in TRAIN_KERNEL_KEYS.items()}
     by["elementwise and other"] = sum(per_kernel.values()) - sum(by.values())
+    # each backward kernel's device ms a step, by symbol (its prefix and the
+    # word after it)
+    bwd_launch = {}
+    for k, v in per_kernel.items():
+        found = re.search(r"(ssd_bwd_|attn_bwd_)\w+", k)
+        if found:
+            bwd_launch[found.group(0)] = bwd_launch.get(found.group(0), 0.0) + v
     return {"device_ms": sum(per_kernel.values()), "by_kernel": by, "ranges": in_range,
-            "top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])}
+            "top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]),
+            "backward_launch_ms": bwd_launch}
 
 
 def _backward_call(kind: str) -> dict:
@@ -2990,10 +3035,15 @@ def _backward_call(kind: str) -> dict:
             lambda *t: ssd_chunked(*t, chunk), (x, dt, A, Bm, Cm), (True,) * 5, (dy, None))
         library = None  # no single PyTorch call computes the chunk scan or its gradient
         parts = ssd_bwd_bound_parts_ms(b, s, h, p, g, n, chunk, torch.bfloat16)
-    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5, warmup=1),
-            "library_ms": None if library is None else time_ms(library),
-            "bound_bytes_ms": parts[0], "bound_ops_ms": parts[1], "bound_ms": max(parts),
-            "bound_by": "bytes" if parts[0] >= parts[1] else "operations"}
+    out = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5, warmup=1),
+           "library_ms": None if library is None else time_ms(library),
+           "bound_bytes_ms": parts[0], "bound_ops_ms": parts[1], "bound_ms": max(parts),
+           "bound_by": "bytes" if parts[0] >= parts[1] else "operations"}
+    if kind == "ssd_scan":
+        pl = ssd_scan.bwd_plan(b, s, h, p, g, n, chunk, kbuild.device_info(0)[1])
+        out.update(launches_per_call=ssd_scan.BWD_LAUNCHES, workspace_bytes=pl.workspace,
+                   plan=dataclasses.asdict(pl))
+    return out
 
 
 def _train_model(card: str, label: str, cfg, remat: str, expect: dict,
@@ -3319,8 +3369,8 @@ def train_phase(card: str) -> dict:
     done("qwen3")
     mamba = configs.get(SSM_ARCH)
     mamba_out = _train_model(card, f"{SSM_ARCH} full width, {mamba.num_layers} layers", mamba,
-                             "none", {"ssd_scan": 6 * mamba.num_layers,
-                                      "ssd_scan_bwd": 5 * mamba.num_layers})
+                             "none", {"ssd_scan": (1 + ssd_scan.BWD_LAUNCHES) * mamba.num_layers,
+                                      "ssd_scan_bwd": ssd_scan.BWD_LAUNCHES * mamba.num_layers})
     done("mamba2")
     moe_cfg = configs.get(MOE_ARCH).scaled(num_layers=TRAIN_MOE_LAYERS, attn_impl="flash_pallas")
     moe_out = _train_model(card, f"{MOE_ARCH} full width, cut to {TRAIN_MOE_LAYERS} layers",
@@ -3329,6 +3379,13 @@ def train_phase(card: str) -> dict:
                                              "flash_attention_bwd": 2 * TRAIN_MOE_LAYERS})
     done("moe")
     bwd = {kind: _backward_call(kind) for kind in ("flash_attention", "ssd_scan")}
+    # K3's launches a call in the profiled mamba2 steps: a step's device ms
+    # over its calls (one a layer)
+    bwd["ssd_scan"]["launch_ms"] = {k: v / mamba.num_layers
+                                    for k, v in mamba_out["backward_launch_ms"].items()
+                                    if k.startswith("ssd_bwd_")}
+    if not bwd["ssd_scan"]["launch_ms"]:
+        raise AssertionError("the profiled mamba2 steps show no ssd_bwd_* kernel")
     for kind, per_step, res in (("flash_attention", qwen3.num_layers, qwen3_out),
                                 ("ssd_scan", mamba.num_layers, mamba_out)):
         r = bwd[kind]
@@ -3339,6 +3396,12 @@ def train_phase(card: str) -> dict:
               f"plain VJP {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, operations "
               f"{r['bound_ops_ms']:.4f})  [{card}]")
+    r = bwd["ssd_scan"]
+    print(f"train: ssd_scan's backward, {r['launches_per_call']} launches a call, device ms "
+          f"each a call in the profiled mamba2 steps: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in r["launch_ms"].items())
+          + f"; workspace {r['workspace_bytes'] / 1e6:.1f} MB, {r['plan']['slices']} slice(s) "
+          f"of {r['plan']['heads']} heads, {r['plan']['items']} chunk items  [{card}]")
     done("backward")
     check = _train_check(card)
     done("check")
@@ -4250,6 +4313,7 @@ def main() -> int:
         "device_library_ms": dev["fwd"]["library_ms"],
         "device_backward_ms": {p: dev[p]["ms"] for p in ("dx", "dw")},
         "device_backward_library_ms": {p: dev[p]["library_ms"] for p in ("dx", "dw")},
+        "device_backward_bound_ms": {p: dev[p]["bound_ms"] for p in ("dx", "dw")},
         "launches_per_train_step": prof["launches_per_step"],
         "device_ms_per_train_step": prof["ibn_ms"],
         "launches_per_oneshot_step": one["launches_per_step"],
@@ -4343,7 +4407,11 @@ def main() -> int:
                   "128, chunk 256, bf16) alone, CUDA events; plain: ref.vjp of the plain "
                   "forward",
         "launches_note": f"over the train phase's {TRAIN_TIMED} timed mamba2 steps",
+        "launches_per_call": train["backward_call"]["ssd_scan"]["launches_per_call"],
+        "workspace_bytes": train["backward_call"]["ssd_scan"]["workspace_bytes"],
+        "device_ms_by_launch": train["backward_call"]["ssd_scan"]["launch_ms"],
         "checks": len(ssd["backward"]),
+        "edge_checks": len(ssd["backward_edges"]),
         **_train_keys(train["mamba2"], "ssd_scan_bwd",
                       "mamba2-370m at full width, 48 layers, remat=none, 8 x 1024 tokens"),
     }, {

@@ -7,7 +7,8 @@ bitwise the same; then timed at the training shapes (qwen3-1.7B's
 attention, B 8, H 16, KV 8, S 1024, hd 128, causal; mamba2-370m's scan, B
 8, S 1024, H 32, P 64, N 128, chunk 256; qwen2-moe-a2.7b's expert products
 at 8 x 1024 tokens; bf16) with each launch's device time from torch's
-profiler, K4's beside two ``torch.bmm`` calls.
+profiler, K4's beside two ``torch.bmm`` calls; K3's launches a call, its
+plan's slices and workspace.
 
     PYTHONPATH=src python scripts/backward_kernels.py
 
@@ -46,7 +47,13 @@ ATTN = [(1, 2, 1, 64, 64, 16, True), (2, 4, 2, 100, 100, 32, True),
 SSD = [(1, 64, 2, 16, 1, 32, 64, False), (2, 100, 4, 16, 2, 16, 32, True),
        (1, 37, 2, 8, 1, 8, 16, True), (2, 300, 4, 64, 1, 128, 256, False),
        (2, 512, 112, 64, 1, 64, 256, False), (1, 1000, 4, 64, 4, 128, 256, True),
-       (1, 130, 32, 64, 1, 128, 256, True), (1, 4096, 2, 64, 1, 128, 4096, False)]
+       (1, 130, 32, 64, 1, 128, 256, True), (1, 4096, 2, 64, 1, 128, 4096, False),
+       # the backward's own edges: a group's 32 heads over 16 slices, a chunk
+       # of 64 (one tile), a chunk of 200 (its last tile 8 positions), S < 64,
+       # P 60 (bf16 copies x and dy into padded rows for its TMA maps)
+       (1, 512, 32, 64, 1, 128, 256, True), (2, 300, 4, 64, 1, 128, 64, False),
+       (2, 700, 4, 64, 1, 128, 200, True), (2, 40, 4, 32, 1, 64, 256, False),
+       (1, 300, 4, 60, 1, 128, 128, True)]
 # (e, c, d, f, view): K4's backward at the training step's gate/up and down
 # products, C ragged (100: dw's K runs past C) and at most 64 (the 64-row
 # body), D and F multiples of 8 but not of 64, operands that are
@@ -228,6 +235,12 @@ def main() -> int:
         print(f"{name}: {t:.4f} ms a call (CUDA events, 20 calls)")
     for name, us in kernels.items():
         print(f"  {us:9.1f} µs  {name[:100]}")
+    pl = kssd.bwd_plan(8, 1024, 32, 64, 1, 128, 256)
+    k3 = {name.split("ssd_bwd_")[1].split("(")[0]: us for name, us in kernels.items()
+          if "ssd_bwd_" in name}
+    print(f"ssd_scan_bwd: {kssd.BWD_LAUNCHES} launches a call, {pl.slices} slice(s) of "
+          f"{pl.heads} heads, {pl.items} chunk items, workspace {pl.workspace / 1e6:.1f} MB; "
+          "device µs over the profiled call: " + ", ".join(f"{k} {v:.1f}" for k, v in k3.items()))
     print(json.dumps({"failed": failed, "ms": times, "kernels_us": kernels}))
     return 1 if failed else 0
 

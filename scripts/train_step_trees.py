@@ -45,13 +45,15 @@ def main(argv=None) -> int:
     print(card)
     qwen3 = cs.configs.get(cs.SERVE_ARCH).scaled(attn_impl="flash_pallas")
     mamba = cs.configs.get(cs.SSM_ARCH)
+    # K3's backward launches in this tree (trees from before the constant ran five)
+    k3 = getattr(cs.ssd_scan, "BWD_LAUNCHES", 5)
     moe = cs.configs.get(cs.MOE_ARCH).scaled(num_layers=cs.TRAIN_MOE_LAYERS,
                                              attn_impl="flash_pallas")
     runs = {
         "qwen3": (qwen3, "full", {"flash_attention": 4 * qwen3.num_layers,
                                   "flash_attention_bwd": 2 * qwen3.num_layers}),
-        "mamba2": (mamba, "none", {"ssd_scan": 6 * mamba.num_layers,
-                                   "ssd_scan_bwd": 5 * mamba.num_layers}),
+        "mamba2": (mamba, "none", {"ssd_scan": (1 + k3) * mamba.num_layers,
+                                   "ssd_scan_bwd": k3 * mamba.num_layers}),
         "moe": (moe, "none", {"gmm": 9 * cs.TRAIN_MOE_LAYERS,
                               "flash_attention": 3 * cs.TRAIN_MOE_LAYERS,
                               "flash_attention_bwd": 2 * cs.TRAIN_MOE_LAYERS}),

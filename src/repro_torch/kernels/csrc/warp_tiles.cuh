@@ -7,9 +7,8 @@
 // mma.sync.m16n8k16 (exact products, fp32 sum); fp32 operands through FMAs
 // in fp32 on the same fragment layout (no TF32: fp32 stays fp32). Shared
 // tiles are row-major with rows padded by 16 bytes (PAD<T>), so the eight
-// rows an ldmatrix reads fall in distinct banks. Also: block-wide scans and
-// sums in a fixed order (deterministic), and strided tile loads from device
-// memory with the edges zero-filled.
+// rows an ldmatrix reads fall in distinct banks. Also: strided tile loads
+// from device memory with the edges zero-filled.
 #pragma once
 
 #include "hopper.cuh"
@@ -174,61 +173,6 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const S* src, long lon
       }
     }
   }
-}
-
-// v[0 .. n) replaced by its inclusive prefix sums (from the end with
-// `reverse`), by the whole block, in a fixed order: a serial run per thread
-// over a contiguous stretch, then thread 0's serial scan of the runs. The
-// sums are taken in fp64 and each rounded to fp32 once, and with `lo` each
-// sum's rounding error goes to lo[i], so v[i] + lo[i] holds it to about 48
-// bits: at a chunk of 4096 positions the SSD backward's cumsum reaches the
-// thousands, where fp32 keeps 1e-4 of a decay exp(cs_i - cs_j). `tmp` holds
-// blockDim.x doubles. Ends with the block synchronised.
-__device__ __forceinline__ void block_scan(float* v, int n, bool reverse, double* tmp,
-                                           float* lo = nullptr) {
-  __syncthreads();
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int first = threadIdx.x * per;
-  const int last = min(n, first + per);
-  double run = 0.0;
-  for (int i = first; i < last; ++i) run += v[reverse ? n - 1 - i : i];
-  tmp[threadIdx.x] = run;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double acc = 0.0;
-    for (int t = 0; t < static_cast<int>(blockDim.x); ++t) {
-      const double r = tmp[t];
-      tmp[t] = acc;
-      acc += r;
-    }
-  }
-  __syncthreads();
-  run = tmp[threadIdx.x];
-  for (int i = first; i < last; ++i) {
-    const int at = reverse ? n - 1 - i : i;
-    run += v[at];
-    v[at] = static_cast<float>(run);
-    if (lo != nullptr) lo[at] = static_cast<float>(run - static_cast<double>(v[at]));
-  }
-  __syncthreads();
-}
-
-// the block's sum of each thread's `v`, in a fixed order (thread 0 adds the
-// threads' values in turn, in fp64); every thread gets it. `tmp` holds
-// blockDim.x doubles.
-__device__ __forceinline__ double block_sum(double v, double* tmp) {
-  __syncthreads();
-  tmp[threadIdx.x] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double acc = 0.0;
-    for (int t = 0; t < static_cast<int>(blockDim.x); ++t) acc += tmp[t];
-    tmp[0] = acc;
-  }
-  __syncthreads();
-  const double out = tmp[0];
-  __syncthreads();
-  return out;
 }
 
 }  // namespace tiles

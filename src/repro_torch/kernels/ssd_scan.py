@@ -39,12 +39,16 @@ launches.
 
 Gradient (``SsdScan``): the TPU kernel has no VJP, and the reference's
 Mamba2 mixer differentiates its jnp chunked scan. On the card its gradient
-for x, dt, A, B and C is five more hand-written launches
-(``csrc/ssd_scan_bwd.cu``: the chunks' states, the state pass, each chunk's
-gradients, the cumsum's, the sums over heads), from the saved inputs, y's
-cotangent and the final state's (absent, ``None``, or a tensor); a backward
-counts five launches (``LAUNCHES`` and ``BACKWARD_LAUNCHES``). On the CPU it
-takes the plain backward, ``ref.ssd_chunked_bwd``. The launches are the
+for x, dt, A, B and C is ``BWD_LAUNCHES`` (three) more hand-written launches
+(``csrc/ssd_scan_bwd.cu``: the chunks' cumsums and states with the state
+pass; each chunk's gradients, B's and C's summed over a slice of each
+group's heads; the cumsum's cotangent, dt's and A's), from the saved
+inputs, y's cotangent and the final state's (absent, ``None``, or a tensor);
+a backward counts them in ``LAUNCHES`` and ``BACKWARD_LAUNCHES``.
+``bwd_plan`` gives the slices and the workspace; bf16 reads x, B, C and dy
+through TMA maps, so a tensor a map cannot read is copied into padded rows
+(``OPERAND_COPIES`` counts every such copy, the forward's too). On the CPU
+it takes the plain backward, ``ref.ssd_chunked_bwd``. The launches are the
 custom op ``repro_torch::ssd_scan_bwd`` (fake implementation and FLOP
 formula as the forward's). No atomics: the same inputs give bitwise the
 same gradients. The backward runs in a profiler range,
@@ -72,8 +76,12 @@ SOURCES = (SOURCE, BWD_SOURCE)
 #: kernel launches so far, forward and backward (the plain version is not
 #: counted). Reset it to 0 to count one run.
 LAUNCHES = 0
-#: of those, the backward's (five a backward)
+#: of those, the backward's (``BWD_LAUNCHES`` a backward)
 BACKWARD_LAUNCHES = 0
+#: launches of one backward: the states, the chunks, the finish
+BWD_LAUNCHES = 3
+#: operands copied into padded rows because no TMA map reads them as they lie
+OPERAND_COPIES = 0
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 4096
 #: CTAs of a cluster that share a (batch, head)'s chunks, at most (portable)
@@ -161,6 +169,70 @@ def plan(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
                      f"{dtype}")
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """What one backward runs: ``chunk`` positions a chunk, ``chunks`` of
+    them, ``tiles`` 64-position tiles a chunk; the chunk launch's items,
+    one per (batch, group, chunk, tile, slice), each looping over ``heads``
+    heads of its group's ``slices`` slices (the last may hold fewer); the
+    workspace's ``workspace`` bytes (``ssd_scan_bwd_workspace`` computes the
+    same)."""
+    chunk: int
+    chunks: int
+    tiles: int
+    slices: int
+    heads: int
+    items: int
+    workspace: int
+
+
+def bwd_workspace(b: int, s: int, h: int, g: int, n: int, chunk: int, slices: int) -> int:
+    """The backward's workspace in bytes, each region on 1024 bytes: a
+    float4 a position (the chunk padded to 64s: cs, its lo part, dt); the
+    states h_in and dh_out, 64 x N (padded to 64 or 128) fp32-sized
+    elements each a (batch, head, chunk); three fp64 values a position (the
+    cumsum cotangent's two parts and w); four fp64 partials a (batch, head,
+    chunk); and, with more than one slice, dB's and dC's fp32 partials per
+    slice. ``chunk`` is ``min(chunk, S)``."""
+    nc, qp = ceil_div(s, chunk), round_up(chunk, TJ)
+    bhc = b * h * nc
+    nw = 64 if n <= 64 else 128
+    sizes = (bhc * qp * 16, bhc * 2 * PW * nw * 4, 3 * bhc * qp * 8, bhc * 4 * 8,
+             2 * slices * b * s * g * n * 4 if slices > 1 else 0)
+    return sum(round_up(x, 1024) for x in sizes)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, sms: int = 132,
+             slices: Optional[int] = None) -> BwdPlan:
+    """The backward's launch on a card of ``sms`` SMs (see ``BwdPlan``). A
+    chunk launch item walks its tile's pairs for each head of its slice and
+    sums dB and dC over them, so the slices trade parallelism for partial
+    sums: of the divisors d of a group's heads, the one whose items finish
+    soonest, ``ceil(items(d) / sms) * heads / d`` waves of one head's
+    work, the fewest on a tie (no partials at all with one). ``slices``
+    fixes the count instead. Raises on a shape the kernels do not take."""
+    if min(b, s, h, p, g, n, chunk) <= 0 or p > MAX_P or n > MAX_N or h % g:
+        raise ValueError(f"shapes the ssd_scan backward does not take: b {b} s {s} h {h} "
+                         f"p {p} g {g} n {n} chunk {chunk}")
+    q = min(chunk, s)
+    if q > MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    hg = h // g
+    nc, nt = ceil_div(s, q), ceil_div(q, TJ)
+    base = b * g * nc * nt
+    if slices is None:
+        slices = min((d for d in range(1, hg + 1) if hg % d == 0),
+                     key=lambda d: (ceil_div(base * d, sms) * (hg // d), d))
+    elif not 1 <= slices <= hg:
+        raise ValueError(f"slices must be in [1, {hg}], got {slices}")
+    heads = ceil_div(hg, slices)
+    if (slices - 1) * heads >= hg:
+        raise ValueError(f"{slices} slices of {heads} heads leave one empty ({hg} heads)")
+    return BwdPlan(q, nc, nt, slices, heads, base * slices,
+                   bwd_workspace(b, s, h, g, n, q, slices))
+
+
 def build() -> Path:
     """Compile the forward's and the backward's libraries if these sources
     have not been built yet (in parallel); returns the forward's path."""
@@ -188,9 +260,9 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = ctypes.CDLL(str(kbuild.build(BWD_SOURCE)[0]))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 13 + [i32] * 7 + [vp, vp]
+        lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 13 + [i32] * 8 + [vp, vp]
         lib.ssd_scan_bwd_launch.restype = i32
-        lib.ssd_scan_bwd_workspace.argtypes = [i32] * 6
+        lib.ssd_scan_bwd_workspace.argtypes = [i32] * 8
         lib.ssd_scan_bwd_workspace.restype = ctypes.c_longlong
         _bwd_lib = lib
     return _bwd_lib
@@ -215,9 +287,11 @@ def _tma_strides(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
 def _operand(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
     """(t, its strides) where a TMA map can read ``t`` as it lies; else a copy
     whose rows are padded to 16 bytes (a fresh allocation), and its strides."""
+    global OPERAND_COPIES
     strides = _tma_strides(t)
     if strides is not None:
         return t, strides
+    OPERAND_COPIES += 1
     align = 16 // t.element_size()
     buf = t.new_empty(t.shape[:3] + (round_up(t.shape[3], align),))[..., :t.shape[3]]
     buf.copy_(t)
@@ -324,12 +398,14 @@ def flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk: int, *args, out_s
 def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor], *,
                chunk: int) -> tuple[torch.Tensor, ...]:
-    """The backward kernels' five launches: (dx, ddt, dA, dB, dC), new
-    contiguous tensors in the inputs' dtypes, from the forward's inputs (as
-    ``launch`` takes them), y's cotangent ``dy`` (x's shape and dtype) and
-    the final state's ``dstate`` ((B, H, P, N) fp32, or None). Every tensor
-    is read through its strides. Raises on anything the kernels do not
-    take. The launches (``_launch_bwd``) are the custom op
+    """The backward kernels' ``BWD_LAUNCHES`` launches: (dx, ddt, dA, dB,
+    dC), new contiguous tensors in the inputs' dtypes, from the forward's
+    inputs (as ``launch`` takes them), y's cotangent ``dy`` (x's shape and
+    dtype) and the final state's ``dstate`` ((B, H, P, N) fp32, or None).
+    Every tensor is read through its strides; in bf16, x, B, C and dy
+    through TMA maps, a tensor no map reads being copied first
+    (``_operand``). Raises on anything the kernels do not take. The
+    launches (``_launch_bwd``) are the custom op
     ``repro_torch::ssd_scan_bwd``, called as one where ``kbuild.traced``
     says so."""
     if x.device.type not in ("cuda", "meta"):
@@ -359,6 +435,8 @@ def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
             raise ValueError(f"dstate {tuple(dstate.shape)} is not {(b, h, p, n)}")
         dstate = dstate.contiguous()
     A = A.contiguous()
+    if x.dtype == torch.bfloat16:
+        (x, _), (B, _), (C, _), (dy, _) = _operand(x), _operand(B), _operand(C), _operand(dy)
     args = (x, dt, A, B, C, dy, dstate)
     traced = kbuild.traced(*(t for t in args if t is not None))
     launch_op = torch.ops.repro_torch.ssd_scan_bwd if traced else _launch_bwd
@@ -370,32 +448,36 @@ def _launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
                 chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """The backward's launches on ``launch_bwd``'s operands (``chunk``
-    already ``min(chunk, S)``), with their fp32 workspace."""
+    already ``min(chunk, S)``; in bf16 x, B, C and dy readable by TMA
+    maps), with their workspace (``bwd_plan``)."""
     global LAUNCHES, BACKWARD_LAUNCHES
-    kbuild.require_sm90(x, "ssd_scan")
+    sms = kbuild.require_sm90(x, "ssd_scan")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    pl = bwd_plan(b, s, h, p, g, n, chunk, sms)
     dx = torch.empty((b, s, h, p), device=x.device, dtype=x.dtype)
     ddt = torch.empty((b, s, h), device=x.device, dtype=torch.float32)
     dA = torch.empty((h,), device=x.device, dtype=torch.float32)
     dB = torch.empty((b, s, g, n), device=x.device, dtype=x.dtype)
     dC = torch.empty_like(dB)
     lib = _bwd_library()
-    ws = torch.empty((lib.ssd_scan_bwd_workspace(b, s, h, p, n, chunk),), device=x.device,
-                     dtype=torch.float32)
-    strides = (ctypes.c_longlong * 19)(*x.stride(), *dt.stride(), *B.stride(), *C.stride(),
-                                       *dy.stride())
+    ws = torch.empty((pl.workspace,), device=x.device, dtype=torch.uint8)
+
+    def st(t: torch.Tensor) -> tuple[int, ...]:
+        return ((*_tma_strides(t), 1) if t.dtype == torch.bfloat16 else t.stride())
+
+    strides = (ctypes.c_longlong * 19)(*st(x), *dt.stride(), *st(B), *st(C), *st(dy))
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd_launch(
             _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            ws.data_ptr(), b, s, h, g, p, n, chunk, strides,
+            ws.data_ptr(), b, s, h, g, p, n, chunk, pl.slices, strides,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
-    LAUNCHES += 5
-    BACKWARD_LAUNCHES += 5
+    LAUNCHES += BWD_LAUNCHES
+    BACKWARD_LAUNCHES += BWD_LAUNCHES
     return dx, ddt, dA, dB, dC
 
 

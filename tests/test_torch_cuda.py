@@ -585,7 +585,7 @@ def test_prefill_on_card_launches_its_kernel_per_layer(family, kernel, per_layer
 
 
 # H8: the backward of gmm (three kernel launches for a product with both
-# grads), ssd_scan (five launches of its backward kernels) and
+# grads), ssd_scan (BWD_LAUNCHES launches of its backward kernels) and
 # flash_attention (two) against the plain versions: gmm's own autograd, and
 # the written-out plain backwards (ref.ssd_chunked_bwd,
 # ref.flash_attention_bwd)
@@ -665,13 +665,58 @@ def test_ssd_scan_backward_matches_plain_version_on_card(b, s, h, p, g, n, chunk
     y, st = ops.ssd_scan(*leaves, chunk=chunk)
     torch.autograd.backward([y, st] if with_state else [y], [dy, dst] if with_state else [dy])
     torch.cuda.synchronize()
-    assert tssd.LAUNCHES - before == 6  # the forward and the backward's five
-    assert tssd.BACKWARD_LAUNCHES - bwd_before == 5
+    assert tssd.LAUNCHES - before == 1 + tssd.BWD_LAUNCHES  # the forward and the backward's
+    assert tssd.BACKWARD_LAUNCHES - bwd_before == tssd.BWD_LAUNCHES
     want = kref.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dst, chunk)
     for leaf, pl in zip(leaves, want, strict=True):
         gr = leaf.grad
         assert gr.dtype == pl.dtype and gr.shape == pl.shape and torch.isfinite(gr.float()).all()
         assert _rel_to_max(gr, pl) < SSD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", chip_smoke.SSD_BWD_EDGES)
+def test_ssd_scan_backward_edges_on_card(shape, dtype):
+    """K3's backward at its design's edges (chip_smoke's SSD_BWD_EDGES: a
+    group's heads over several slices, chunks of 64 and 4096, S < 64, a
+    chunk whose last tile is short, P 60) against the plain backward, in
+    float64 for fp32 (the fp32 plain backward is itself off by more than the
+    limit at some of these draws):
+    within BWD_TOL, twice bitwise, BWD_LAUNCHES launches, the slices the plan
+    gives, and an operand copy only where bf16's TMA maps cannot read x and
+    dy as they lie."""
+    _need_sm90()
+    gen = torch.Generator("cuda").manual_seed(15)
+    td = getattr(torch, dtype)
+    rec = chip_smoke.check_ssd_backward(shape, td, gen, with_state=True,
+                                        exact=dtype == "float32")
+    assert rec["bitwise"] and rec["launches"] == tssd.BWD_LAUNCHES
+    assert max(rec["rel_err"].values()) <= chip_smoke.BWD_TOL[td]
+    assert rec["operand_copies"] == (2 if shape[3] % 8 and dtype == "bfloat16" else 0)
+    b, s, h, p, g, n, chunk = shape
+    assert rec["plan"] == dataclasses.asdict(
+        tssd.bwd_plan(b, s, h, p, g, n, chunk, kbuild.device_info(0)[1]))
+    if shape in chip_smoke.SSD_BWD_EDGES[:3]:  # the heads of a group over several slices
+        assert rec["plan"]["slices"] > 1
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_plan_is_what_the_launcher_takes():
+    """``ssd_scan.bwd_plan``'s workspace is the backward's own
+    (``ssd_scan_bwd_workspace``) at every shape the card tests run, at the
+    plan's slices and at each other count of them."""
+    _need_sm90()
+    lib = tssd._bwd_library()
+    for b, s, h, p, g, n, chunk in ([sh[:7] for sh in SSD_BWD_SHAPES]
+                                    + chip_smoke.SSD_BWD_EDGES + [chip_smoke.SSD_BWD_EXACT]):
+        q = min(chunk, s)
+        pl = tssd.bwd_plan(b, s, h, p, g, n, chunk)
+        assert lib.ssd_scan_bwd_workspace(b, s, h, g, p, n, q, pl.slices) == pl.workspace
+        for slices in (1, 2, h // g):
+            if slices <= h // g:
+                other = tssd.bwd_plan(b, s, h, p, g, n, chunk, slices=slices)
+                assert lib.ssd_scan_bwd_workspace(b, s, h, g, p, n, q, slices) == other.workspace
 
 
 @pytest.mark.cuda
@@ -899,18 +944,21 @@ def _train_cfg(family):
 def _train_launches(cfg, remat: str) -> dict:
     """Each kernel's launches in one training step: forward (again in the
     recompute under remat) and the backward's: gmm's dx and dw, ssd_scan's
-    five, flash_attention's two (and those two counted apart, as
+    BWD_LAUNCHES, flash_attention's two (and those two counted apart, as
     ``*_bwd``)."""
     r, n = (1 if remat == "none" else 2), cfg.num_layers
     if cfg.family == "moe":
         return {"gmm": (3 * r + 6) * n, "flash_attention": (r + 2) * n,
                 "flash_attention_bwd": 2 * n}
     if cfg.family == "ssm":
-        return {"ssd_scan": (r + 5) * n, "ssd_scan_bwd": 5 * n}
+        k3 = tssd.BWD_LAUNCHES
+        return {"ssd_scan": (r + k3) * n, "ssd_scan_bwd": k3 * n}
     if cfg.family == "hybrid":  # the tail's Mamba2 layers are outside the remat
         groups = n // cfg.hybrid_attn_every
         per = cfg.hybrid_attn_every
-        return {"ssd_scan": r * groups * per + n - groups * per + 5 * n, "ssd_scan_bwd": 5 * n,
+        k3 = tssd.BWD_LAUNCHES
+        return {"ssd_scan": r * groups * per + n - groups * per + k3 * n,
+                "ssd_scan_bwd": k3 * n,
                 "flash_attention": (r + 2) * groups, "flash_attention_bwd": 2 * groups}
     return {"flash_attention": (r + 2) * n, "flash_attention_bwd": 2 * n}
 
