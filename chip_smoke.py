@@ -11,8 +11,10 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                each, started together) and prints ptxas's report;
 2. kernel    — at every distinct 1×1 shape of full-width MobileNetV2,
                EfficientNet-B0 (SE, swish) and the manual EdgeTPU model at
-               224 px, batch 8, and of the search's MobileNetV2 space at the
-               proxy's 32 px, batch 64, holds the kernel's forward and backward
+               224 px, batch 8, of the search's MobileNetV2 space at the
+               proxy's 32 px, batch 64, and of the quickstart example's
+               ``nas.tiny_space`` at 32 px and its training batch, holds the
+               kernel's forward and backward
                (dx, dw, db) against the plain PyTorch version on the card, its
                edges (K 960 and dw's K 16384 split over a cluster, ragged M and
                N, transposed views, bf16) with two controls that the limit
@@ -59,10 +61,10 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                20 times and shuffled, each answer equal to
                ``brute_force_best``, with 0 evaluations and 0 kernel launches;
                then admits two envelopes below the frontier's least latency at
-               once (``AdmissionController``, ``max_concurrent=2``, budget 16,
+               once (``AdmissionController``, ``max_concurrent=2``, budget 8,
                batch 8, REINFORCE on the card, the durable store given) whose
                searches train their candidates with
-               ``TrainedAccuracy(steps=40, batch=64)`` on the card (K1), folds
+               ``TrainedAccuracy(steps=20, batch=64)`` on the card (K1), folds
                them in, re-asks (no more admissions; answers equal brute
                force over the folded frontier), and holds each admitted
                search's history and store records bitwise against the same
@@ -75,7 +77,7 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
 8. costmodel — labels 50,000 points of the oneshot search's joint space
                (full-width MobileNetV2's kernel / expansion / op choices at 32 px
                x the accelerator space) with the simulator, trains the MLP cost
-               model (``CostModelConfig()``: 20,000 Adam steps, energy head) on
+               model (``COST_CONFIG``: 10,000 Adam steps, energy head) on
                the card, reports its validation MAPEs, and holds its forward and
                3 steps (dropout 0) card against CPU;
 9. oneshot   — the oneshot (weight-sharing) search over full-width MobileNetV2
@@ -214,9 +216,23 @@ On one NVIDIA H100 (compute capability 9.0, ``nvcc`` on PATH or in
                a fake 8-rank CUDA world against rank 0's readings of the
                real pass (collectives per kind, FLOPs and bytes equal, the
                peak within 20%);
-21. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+21. examples — the port's five examples (``examples/torch_*.py``), each
+               through its ``main(argv)`` on the card: quickstart at its own
+               settings (24 samples, ``TrainedAccuracy(steps=60, batch=32)``)
+               launching ``ibn_pointwise`` only at products the kernel phase
+               held (each launch's shape recorded); scenario_sweep and codesign_mesh
+               (mistral-nemo-12b, train_4k, 300 samples) printing what the
+               same example prints on the CPU; serve_lm's ``generate`` on
+               weights made on the CPU and moved to the card, teacher-forced
+               on the CPU run's tokens, each step's logits within 5e-2 of max
+               |logit| of the CPU's, and its tokens/s; train_lm (~100M
+               parameters, 8 x 512 tokens a step) to 40 steps, then to 50
+               on the same checkpoint directory, which must resume at 40:
+               ms a step, tokens/s and peak memory; each example's wall;
+22. prints one ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
-Each main path (search, runtime, serve_tier and oneshot for ibn_pointwise; serve, serve_ssm,
+Each main path (search, runtime, serve_tier, oneshot and the quickstart example for
+ibn_pointwise; serve, serve_ssm,
 serve_moe, train and parallel for flash_attention, ssd_scan and gmm; mesh, which
 must launch none of them, as the dryrun phase's traces must not) runs with every
 kernel's launch count set to 0 just before it and read just after. Any failure raises and exits
@@ -230,6 +246,9 @@ import argparse
 import bisect
 import contextlib
 import dataclasses
+import importlib.util
+import io
+import itertools
 import json
 import math
 import os
@@ -289,10 +308,12 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGIT_TOL = 1e-3  # card vs CPU logits, absolute (cuDNN vs CPU conv sum order)
 MAIN_PATH_SCENARIO = "lat-0.5ms"
-# costmodel: labelled points and the card-vs-CPU limits (forward / max |output|;
+# costmodel: labelled points, the training (half the library's 20,000 steps:
+# the host-bound steps took up to 133 s, and the whole script ran past its
+# limit on a slow host) and the card-vs-CPU limits (forward / max |output|;
 # 3 Adam steps per leaf / max(1, max |leaf|))
 COST_POINTS = 50_000
-COST_CONFIG = costmodel.CostModelConfig()
+COST_CONFIG = dataclasses.replace(costmodel.CostModelConfig(), steps=10_000)
 COST_FWD_TOL = 1e-5
 COST_STEP_TOL = 1e-4
 # oneshot: supernet steps of the search, the card-vs-CPU batch, and the limits
@@ -436,13 +457,15 @@ RUNTIME_BUDGET = 24
 # the serve_tier phase: the runtime phase's serial store; every registered
 # scenario, the runtime preset and seeded ad-hoc envelopes over the
 # frontier's own ranges, tiled for re-asks (benchmarks/serve_bench.py's
-# workload); two admitted searches at once, trained as the search phase
-# trains, their latency targets these fractions of the frontier's least
+# workload); two admitted searches at once, one batch of 8 samples each,
+# trained as the runtime phase trains (16 samples at the search phase's 40
+# steps a candidate made the whole script run past its limit on a slow
+# host), their latency targets these fractions of the frontier's least
 SERVE_TIER_ADHOC = 300
 SERVE_TIER_REPEATS = 20
 SERVE_TIER_COLD_REPS = 5
-SERVE_TIER_ADMISSION = AdmissionConfig(budget_samples=16, batch=8, max_concurrent=2)
-SERVE_TIER_TRAIN = {"steps": 40, "batch": 64}
+SERVE_TIER_ADMISSION = AdmissionConfig(budget_samples=8, batch=8, max_concurrent=2)
+SERVE_TIER_TRAIN = {"steps": 20, "batch": 64}
 SERVE_TIER_TARGETS = (0.9, 0.8)
 MESH_ARCHS = ("qwen3_1_7b", "mamba2_370m", "qwen2_moe_a2_7b")
 MESH_SHAPE, MESH_CHIPS, MESH_SAMPLES = "train_4k", 256, 400
@@ -563,6 +586,33 @@ def search_space_shapes(batch: int, image_size: int) -> list[tuple[int, int, int
                        for i, b in enumerate(base.blocks))
         shapes += pointwise_shapes(dataclasses.replace(base, blocks=blocks), batch)
     return sorted(set(shapes))
+
+
+def quickstart_shapes() -> list[tuple[int, int, int]]:
+    """Every 1×1 shape that ``examples/torch_quickstart.py`` can give the
+    kernel: its ``nas.tiny_space`` decoded at every expansion, op and filter
+    multiplier of every block (kernel size and groups change only the k×k
+    convolutions), at the proxy's image size and the example's
+    ``TRAIN_BATCH``, which the proxy's evaluation batches share."""
+    qs = _example("quickstart")
+    proxy = TrainedAccuracy(steps=qs.TRAIN_STEPS, batch=qs.TRAIN_BATCH, device="cpu")
+    space = nas.tiny_space()
+    free = [c for c in space.choices if not c.name.endswith(("_kernel", "_groups"))]
+    shapes = set()
+    for combo in itertools.product(*(c.options for c in free)):
+        d = {c.name: c.options[0] for c in space.choices}
+        d.update({c.name: o for c, o in zip(free, combo)})
+        spec = dataclasses.replace(space.decoder(d), image_size=proxy.image_size,
+                                   num_classes=proxy.num_classes)
+        shapes.update(pointwise_shapes(spec, proxy.batch))
+    return sorted(shapes)
+
+
+def products_of(shapes) -> set[tuple[int, int, int]]:
+    """(M, K, N) of the launches that one forward and backward of each
+    (N, Cin, Cout) shape makes: ``x @ w``, ``dz @ wᵀ`` and ``xᵀ @ dz``."""
+    return {p for n, cin, cout in shapes for p in ((n, cin, cout), (n, cout, cin),
+                                                    (cin, n, cout))}
 
 
 def supernet_shapes(batch: int, image_size: int) -> list[tuple[int, int, int]]:
@@ -770,8 +820,9 @@ def kernel_phase(card: str) -> dict:
     full = sorted({s for shapes in per_model.values() for s in shapes})
     search = search_space_shapes(64, 32)
     supernet = supernet_shapes(64, 32)
+    quick = quickstart_shapes()
     records = {}
-    for shape in sorted(set(full) | set(search) | set(supernet)):
+    for shape in sorted(set(full) | set(search) | set(supernet) | set(quick)):
         for act in ("none", "relu"):
             records[(shape, act, "fp32")] = check_shape(
                 *shape, act, torch.float32, gen, timed=(act == "none"))
@@ -788,9 +839,9 @@ def kernel_phase(card: str) -> dict:
     flips = sum(r["relu_mask_flips"] for r in records.values())
     zeroed = sum(r["cotangent_zeroed"] for r in records.values())
     print(f"kernel: {len(records)} checks at {len(full)} full-width shapes (224 px, "
-          f"batch 8), {len(search)} search shapes and {len(set(supernet))} supernet shapes "
-          f"({len(set(supernet) - set(search))} not among the search's; 32 px, batch 64), "
-          f"forward and "
+          f"batch 8), {len(search)} search shapes, {len(set(supernet))} supernet shapes "
+          f"({len(set(supernet) - set(search))} not among the search's; 32 px, batch 64) and "
+          f"{len(quick)} quickstart shapes (tiny_space, 32 px, batch 32), forward and "
           f"backward; worst error {worst:.3g} of its tolerance; {flips} relu outputs on the "
           f"other side of 0 from the plain version's, each within the limit of 0 (relu's "
           f"cotangent is 0 at the {zeroed} plain pre-activations there)  [{card}]")
@@ -816,6 +867,18 @@ def kernel_phase(card: str) -> dict:
         print(f"kernel: (N, Cin, Cout) = {shape} fp32: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, addmm {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
+    rs = [records[(s, a, "fp32")] for s in quick for a in ("none", "relu")]
+    t = totals(quick)
+    q = summary["quickstart_shapes"] = {
+        **t, "shapes": len(quick), "checks": len(rs),
+        "worst_of_tol": max(max(r["fwd_rel_err"], r["dx_rel_err"], r["dw_rel_err"],
+                                r["db_rel_err"]) / r["tol"] for r in rs),
+        "max_abs_err": max(r["fwd_max_abs_err"] for r in rs)}
+    print(f"kernel: the {len(quick)} quickstart shapes (tiny_space, every expansion, op and "
+          f"filter multiplier; 32 px, batch 32), fp32, none and relu: worst error "
+          f"{q['worst_of_tol']:.3g} of its tolerance, max |err| {q['max_abs_err']:.3g}; one "
+          f"forward each: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, addmm "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms  [{card}]")
     t = totals(search)
     summary["search_shapes"] = t
     print(f"kernel: the {len(search)} search shapes, one forward each, host-issued (CUDA "
@@ -826,7 +889,7 @@ def kernel_phase(card: str) -> dict:
     edges = k1_edges(card)
     device = device_phase(card, full, search, supernet, per_model)
     return {"records": list(records.values()), "summary": summary,
-            "search_totals": t, "device": device, "edges": edges,
+            "search_totals": t, "quickstart_shapes": quick, "device": device, "edges": edges,
             "max_abs_err": max(r["fwd_max_abs_err"] for r in fp32_main),
             "max_rel_err_fwd": max(r["fwd_rel_err"] for r in records.values()),
             "max_rel_err_bwd": max(max(r["dx_rel_err"], r["dw_rel_err"], r["db_rel_err"])
@@ -4218,6 +4281,210 @@ def dryrun_phase(card: str, par: dict) -> dict:
     return out
 
 
+# the examples phase: each example's main(argv) on the card; train_lm trains
+# to the first count, then is run again to the second on the same --ckpt
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+# train_lm's runs, cut from 100 and 120 steps to keep the script inside its
+# limit; the second resumes from the first's checkpoint
+EXAMPLES_TRAIN_STEPS = (40, 50)
+TRAIN_LM_TOKENS = 512 * 8  # a step of train_lm at its default --seq and --batch
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main`` runs only when
+    called)."""
+    path = EXAMPLES_DIR / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, argv: list[str]) -> dict:
+    """``mod.main(argv)`` with its stdout captured: the return value, the
+    text, the wall s (the card synchronized on both sides) and the launches
+    of each kernel, counted from 0 just before."""
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"ret": ret, "text": buf.getvalue(), "wall_s": wall,
+            "launches": launch_counts()}
+
+
+def examples_phase(card: str, held_shapes) -> dict:
+    """The port's five examples (``examples/torch_*.py``) on the card:
+    quickstart as it is, launching K1 only at the products of
+    ``held_shapes``, which the kernel phase held; scenario_sweep and codesign_mesh
+    (default arch, 300 samples) printing what the same example prints on
+    the CPU; serve_lm's ``generate`` on weights made on the CPU and moved to
+    the card, teacher-forced on the CPU run's tokens, each step's logits
+    against the CPU's; train_lm to 40 steps, then to 50 on the same
+    checkpoint directory, resuming at 40."""
+    t_phase = time.perf_counter()
+    out = {}
+
+    launched, launch_ = set(), ibn_conv.launch
+
+    def recording(x, w, b, act):  # each launch's (M, K, N) and dtype
+        launched.add((x.shape[0], x.shape[1], w.shape[1], x.dtype))
+        return launch_(x, w, b, act)
+
+    ibn_conv.launch = recording
+    try:
+        run = _run_example(_example("quickstart"), ["--device", "cuda"])
+    finally:
+        ibn_conv.launch = launch_
+    launches = run["launches"]
+    others = {k: v for k, v in launches.items() if v and k != "ibn_pointwise"}
+    if launches["ibn_pointwise"] == 0 or others:
+        raise AssertionError(f"examples: the quickstart launched {launches}")
+    unheld = {p for p in launched
+              if p[3] != torch.float32 or p[:3] not in products_of(held_shapes)}
+    if unheld:
+        raise AssertionError(f"examples: the quickstart launched ibn_pointwise at products "
+                             f"the kernel phase did not hold: {sorted(map(str, unheld))}")
+    res = run["ret"]
+    trained = sum(1 for h in res.history if h["valid"])
+    out["quickstart"] = {"wall_s": run["wall_s"], "samples": len(res.history),
+                         "trained": trained, "launches": launches["ibn_pointwise"],
+                         "products": sorted(p[:3] for p in launched), "text": run["text"]}
+    print(f"examples: quickstart {run['wall_s']:.1f} s, {len(res.history)} samples, "
+          f"{trained} trained on the card, {launches['ibn_pointwise']} ibn_pointwise "
+          f"launches at {len(launched)} distinct fp32 products, each one the kernel phase "
+          f"held  [{card}]", flush=True)
+
+    for name, argv in (("scenario_sweep", []), ("codesign_mesh", [])):
+        mod = _example(name)
+        on_card = _run_example(mod, [*argv, "--device", "cuda"])
+        on_cpu = _run_example(mod, [*argv, "--device", "cpu"])
+        if on_card["text"] != on_cpu["text"]:
+            raise AssertionError(f"examples: {name} printed otherwise on the card:\n"
+                                 f"{on_card['text']}\non the CPU:\n{on_cpu['text']}")
+        launched = {k: v for k, v in on_card["launches"].items() if v}
+        if launched:
+            raise AssertionError(f"examples: {name} launched {launched}")
+        out[name] = {"wall_s": on_card["wall_s"], "cpu_wall_s": on_cpu["wall_s"],
+                     "text": on_card["text"]}
+        print(f"examples: {name} {on_card['wall_s']:.1f} s on the card, then "
+              f"{on_cpu['wall_s']:.1f} s on the CPU (the host's caches warm), the same "
+              f"{len(on_card['text'].splitlines())} lines  [{card}]", flush=True)
+
+    sl = _example("serve_lm")
+    run = _run_example(sl, ["--device", "cuda"])
+    cfg = sl.CONFIG
+    params_cpu = api.init(0, cfg, "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (sl.BATCH, sl.PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    cpu_tokens, cpu_logits = sl.generate(params_cpu, cfg, prompts)
+    params = tree_map(lambda t: t.to(DEV), params_cpu)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    card_tokens, card_logits = sl.generate(params, cfg, prompts.to(DEV),
+                                           forced=cpu_tokens.to(DEV))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"examples: serve_lm launched {launched}")
+    card_logits = card_logits.float().cpu()
+    err = max(float((card_logits[t] - cpu_logits[t]).abs().max()
+                    / cpu_logits[t].abs().max()) for t in range(len(cpu_logits)))
+    if not err <= LLM_TOL["bfloat16"]:
+        raise AssertionError(f"examples: serve_lm's teacher-forced logits card vs CPU {err} "
+                             f"of max |logit| (limit {LLM_TOL['bfloat16']})")
+    agree = float((card_tokens.cpu() == cpu_tokens).float().mean())
+    tok_s = sl.BATCH * sl.GEN_LEN / gen_s
+    out["serve_lm"] = {"wall_s": run["wall_s"], "generate_s": gen_s, "tok_s": tok_s,
+                       "logit_err": err, "token_agreement": agree, "text": run["text"]}
+    print(f"examples: serve_lm {run['wall_s']:.1f} s (its main); generate on CPU-made "
+          f"weights, teacher-forced: {gen_s:.3f} s, {tok_s:.1f} tok/s ({sl.BATCH} x "
+          f"{sl.GEN_LEN} tokens after {sl.PROMPT_LEN} prompt tokens, int8 cache), logits card "
+          f"vs CPU {err:.2e} of max |logit| (limit {LLM_TOL['bfloat16']}), own argmax = the "
+          f"CPU's on {agree:.3f} of the tokens  [{card}]", flush=True)
+    del params
+
+    tl = _example("train_lm")
+    loop_s, step_ms = [], []
+    run_training_, make_train_step_ = tl.run_training, tl.make_train_step
+
+    def timed_loop(*a, **k):  # the loop: restore, steps, checkpoints
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run_training_(*a, **k)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t)
+        return res
+
+    def timed_make_train_step(*a, **k):  # each step alone, the card synchronized
+        step, *specs = make_train_step_(*a, **k)
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return (timed_step, *specs)
+
+    tl.run_training, tl.make_train_step = timed_loop, timed_make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # by the earlier phases
+    first_steps, total_steps = EXAMPLES_TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-lm-") as d:
+        first = _run_example(tl, ["--steps", str(first_steps), "--ckpt", d])
+        again = _run_example(tl, ["--steps", str(total_steps), "--ckpt", d])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    a, b = first["ret"], again["ret"]
+    if a.resumed_from is not None or a.final_step != first_steps:
+        raise AssertionError(f"examples: train_lm's first run resumed from {a.resumed_from}, "
+                             f"ended at {a.final_step}")
+    if b.resumed_from != first_steps or b.final_step != total_steps:
+        raise AssertionError(f"examples: train_lm's second run resumed from {b.resumed_from}, "
+                             f"ended at {b.final_step}, not {first_steps} and {total_steps}")
+    if "[loop] resumed from checkpoint step" not in again["text"]:
+        raise AssertionError("examples: train_lm's second run did not say that it resumed")
+    if len(step_ms) != total_steps:
+        raise AssertionError(f"examples: train_lm ran {len(step_ms)} steps, not {total_steps}")
+    runs = []
+    for label, r, s, ms in (("first", first, loop_s[0], step_ms[1:first_steps]),
+                            ("resumed", again, loop_s[1], step_ms[first_steps + 1:])):
+        hist = r["ret"].metrics_history
+        mean_ms = float(np.mean(ms))
+        runs.append({"run": label, "wall_s": r["wall_s"], "loop_s": s, "steps": len(ms) + 1,
+                     "ms_per_step": mean_ms, "tokens_per_s": TRAIN_LM_TOKENS * 1e3 / mean_ms,
+                     "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"]})
+        print(f"examples: train_lm {label}: {len(ms) + 1} steps, wall {r['wall_s']:.1f} s, its "
+              f"loop {s:.1f} s (restore, steps, checkpoints); a step {mean_ms:.1f} ms (mean of "
+              f"all but the first, each synchronized), {TRAIN_LM_TOKENS * 1e3 / mean_ms:.0f} "
+              f"tokens/s; loss {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}  [{card}]",
+              flush=True)
+    out["train_lm"] = {"runs": runs, "peak_gb": peak_gb, "held_gb": held_gb,
+                       "first_step_ms": step_ms[0],
+                       "launches": {k: v for k, v in again["launches"].items() if v}}
+    print(f"examples: train_lm resumed from {b.resumed_from} to {b.final_step}; its first "
+          f"step {step_ms[0]:.1f} ms; peak memory {peak_gb:.2f} GB above the {held_gb:.2f} GB "
+          f"the earlier phases held  [{card}]", flush=True)
+    out["walls"] = {"quickstart": out["quickstart"]["wall_s"],
+                    "scenario_sweep": out["scenario_sweep"]["wall_s"],
+                    "codesign_mesh": out["codesign_mesh"]["wall_s"],
+                    "serve_lm": out["serve_lm"]["wall_s"],
+                    "train_lm": first["wall_s"] + again["wall_s"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("examples: walls (s) on the card " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["walls"].items())
+        + f"; the phase {out['phase_s']:.1f} s  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -4285,6 +4552,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = timed("parallel", parallel_phase)
     dry = timed("dryrun", lambda c: dryrun_phase(c, par))
+    torch.cuda.empty_cache()
+    ex = timed("examples", lambda c: examples_phase(c, kern["quickstart_shapes"]))
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     t = kern["search_totals"]
@@ -4456,7 +4725,8 @@ def main() -> int:
              "profile": prof, "costmodel": {k: v for k, v in cost.items() if k != "model"},
              "oneshot": one, "attention": attn, "ssd": ssd, "gmm": gmm_res, "serve": serve,
              "serve_ssm": serve_ssm, "serve_moe": serve_moe, "llm": llm, "train": train,
-             "mesh": mesh, "parallel": par, "dryrun": dry, "phase_s": phase_s,
+             "mesh": mesh, "parallel": par, "dryrun": dry, "examples": ex,
+             "phase_s": phase_s,
              "kernels": kernels},
             indent=1, default=str))
     print(json.dumps(kernels))

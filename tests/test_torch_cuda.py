@@ -13,7 +13,8 @@ their candidates on the card against the serial sweep, and two threads
 training at once on the card against each training alone, and the
 parallel substrate on the card (a 4-rank sharded train step against the
 unsharded one, the launcher under ``torchrun --mesh 2x2``, the kernels
-refusing a DTensor). Every test here carries the ``cuda`` marker
+refusing a DTensor), and the scenario-sweep and mesh examples on the card
+against the CPU. Every test here carries the ``cuda`` marker
 and skips without an NVIDIA GPU; this file imports no JAX, so it runs on a
 machine with the card and PyTorch alone:
 
@@ -1294,3 +1295,26 @@ def test_kernels_refuse_a_dtensor(tmp_path):
                 call()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,argv", [
+    ("scenario_sweep", []),
+    ("codesign_mesh", ["--arch", "qwen3-1.7b", "--samples", "24"]),
+])
+def test_search_example_on_card_prints_the_cpu_run(name, argv, capsys):
+    """``examples/torch_scenario_sweep.py`` and ``torch_codesign_mesh.py``
+    with their PPO controllers on the card print what the same example
+    prints on the CPU."""
+    _need_card()
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = {}
+    for device in ("cuda", "cpu"):
+        example.main([*argv, "--device", device])
+        out[device] = capsys.readouterr().out
+    assert out["cuda"] == out["cpu"]

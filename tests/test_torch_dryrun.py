@@ -390,11 +390,30 @@ def test_collect_results_renders_a_record_the_port_wrote(tmp_path):
     rec = json.loads((tmp_path / "mamba2_370m_decode_32k_single.json").read_text())
     assert rec["status"] == "ok" and rec["roofline"]["useful_flops_ratio"] <= 1.05
     assert np.isclose(rec["cost_analysis"]["flops"], rec["raw_cost"]["flops"], rtol=0)
-    table = subprocess.run([sys.executable, "scripts/collect_results.py", "--dir",
-                            str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=120)
-    assert table.returncode == 0, table.stderr
-    rows = [line for line in table.stdout.splitlines()
-            if line.startswith("| mamba2_370m | decode_32k |")]
-    assert len(rows) == 2, table.stdout  # the dry-run table and the roofline table
+    # the port's table script with jax and the reference blocked, and the
+    # reference's script, on the same record
+    blocked = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
+               "sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')")
+    tables = {}
+    for name, cmd in (("port", [sys.executable, "-c", blocked,
+                                "scripts/torch_collect_results.py"]),
+                      ("ref", [sys.executable, "scripts/collect_results.py"])):
+        table = subprocess.run(cmd + ["--dir", str(tmp_path)], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=120)
+        assert table.returncode == 0, table.stderr
+        tables[name] = table.stdout.splitlines()
+    port, ref = tables["port"], tables["ref"]
+    rows = [line for line in port if line.startswith("| mamba2_370m | decode_32k |")]
+    assert len(rows) == 2, port  # the dry-run table and the roofline table
     assert rows[0].startswith("| mamba2_370m | decode_32k | 16x16 | ok |")
+    # every cell of every line is the reference's but the first table's
+    # seventh column: "trace s" (the record's lower_s) for "compile s"
+    assert len(port) == len(ref)
+    first_table = port.index("### §Roofline (single-pod, loop-calibrated)")
+    for i, (got, want) in enumerate(zip(port, ref)):
+        if i < first_table and got.startswith("| ") and not got.startswith("|---"):
+            got, want = got.split(" | "), want.split(" | ")
+            assert (got[6], want[6]) in (("trace s", "compile s"),
+                                         (f"{rec['lower_s']:.0f}", "0"))
+            got[6] = want[6]
+        assert got == want

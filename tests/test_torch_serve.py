@@ -18,9 +18,10 @@ case with ``tests/test_serve.py``, on the same inputs:
   (in-process through ``main(argv)``; one case in a subprocess with ``jax``
   and ``repro`` blocked, which also checks ``evaluations=0``), the
   corrupt-snapshot fallback, and admission on the requested device;
-* **a port-built fixture** — ``scripts/make_serve_fixture.py``'s recipe run
-  by the port holds the fixture's records by decision vector, under the
-  port's own namespace.
+* **a port-built fixture** — ``scripts/torch_make_serve_fixture.py``, the
+  port's copy of ``scripts/make_serve_fixture.py``'s recipe, builds a store
+  that holds the fixture's records by decision vector, under the port's own
+  namespace.
 
 The fixture's keys carry the reference's namespace digest, which the port
 reads as data. Each reference result is computed once per module."""
@@ -49,10 +50,9 @@ from repro.runtime import DurableRecordStore as RefStore  # noqa: E402
 from repro import serve as ref_serve  # noqa: E402
 from repro_torch.core import engine as port_engine  # noqa: E402
 from repro_torch.core import has as port_has  # noqa: E402
-from repro_torch.core import nas, proxy, scenarios, sweep  # noqa: E402
+from repro_torch.core import nas, proxy, scenarios  # noqa: E402
 from repro_torch.core.pareto import ParetoFrontier  # noqa: E402
-from repro_torch.core.search import SearchConfig  # noqa: E402
-from repro_torch.runtime import DurableRecordStore, SearchRuntime  # noqa: E402
+from repro_torch.runtime import DurableRecordStore  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionConfig,
     AdmissionController,
@@ -73,6 +73,7 @@ GOLDEN = json.loads((ROOT / "tests" / "data" / "serve_fixture_golden.json").read
 CASES = [pytest.param(c, id=c["name"]) for c in GOLDEN["cases"]]
 SCRIPT = ROOT / "scripts" / "torch_runtime_serve.py"
 MAKE_FIXTURE = ROOT / "scripts" / "make_serve_fixture.py"
+PORT_MAKE_FIXTURE = ROOT / "scripts" / "torch_make_serve_fixture.py"
 
 
 def _dumps(rec) -> str:
@@ -763,20 +764,18 @@ def _fixture_recipe():
     return _load(MAKE_FIXTURE, "make_serve_fixture")
 
 
-def test_port_built_store_holds_the_fixtures_records_by_vector(tmp_path):
-    """``make_serve_fixture``'s recipe (tiny space, surrogate, seed 0) run
-    by the port: the records by decision vector are the fixture's, under
-    the port's own namespace digest."""
-    recipe = _fixture_recipe()
+def test_port_built_store_holds_the_fixtures_records_by_vector(tmp_path, capsys):
+    """``scripts/torch_make_serve_fixture.py``'s ``build`` with the
+    reference script's recipe (tiny space, surrogate, seed 0): the records
+    by decision vector are the fixture's, under the port's own namespace
+    digest."""
+    recipe, port_recipe = _fixture_recipe(), _load(PORT_MAKE_FIXTURE,
+                                                    "torch_make_serve_fixture")
+    for name in ("SCENARIOS", "SAMPLES", "BATCH", "SEED"):
+        assert getattr(port_recipe, name) == getattr(recipe, name), name
     path = tmp_path / "port.jsonl"
-    store = DurableRecordStore(path)
-    sweep.SweepRunner(
-        list(recipe.SCENARIOS), nas.tiny_space(), proxy.SurrogateAccuracy(),
-        sweep.SweepConfig(search=SearchConfig(samples=recipe.SAMPLES, batch=recipe.BATCH,
-                                              seed=recipe.SEED, device="cpu")),
-    ).run(runtime=SearchRuntime(store=store))
-    store.compact()
-    store.close()
+    built = port_recipe.build(path, device="cpu")
+    assert capsys.readouterr().out.startswith(f"{path}: {len(built)} records (")
 
     def by_vec(store):
         return {port_engine.split_key(k)[1]: raw for k, raw, _ in store.entries()}
